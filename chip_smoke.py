@@ -8,24 +8,34 @@ Run from the root of a checkout, on a machine with one card:
 Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: nvcc for the four CUDA kernels (csrc/*.cu, one nvcc each, all
+2. build: nvcc for the six CUDA kernels (csrc/*.cu, one nvcc each, all
    started together) and g++ for the C++ host engine, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, on
-   the same inputs, at the main path's shapes (B = 8192 and 65536 reads,
+   the same inputs, at the main paths' shapes (B = 8192 and 65536 reads,
    L = 104 single-end and 208 paired): exact equality (integer code,
    zero tolerance), kernel and plain times (CUDA events, median of 7),
    the time of one PyTorch library call computing the same function
-   where there is one, and the card's lower bound for the work;
+   where there is one, and the card's lower bound for the work. The
+   front end, hashed probe, finish and pair stream run on the homolog
+   panel's index; the xl and classic probes on a transcriptome index at
+   bench/transcriptome_bench.py's widths (50,000 genes x 1500 bp, every
+   80th gene starting a family of 8 that shares a 300 bp core), which
+   takes the xl layout with a side table;
 4. end to end through the CLI entry point (shark_tpu_torch.cli.main, what
    `python -m shark_tpu_torch` runs) with the default flags
    -k 17 -c 0.6 -b 1, on workloads made with numpy from a seed at
    bench.py's shapes: (a) a 500-gene x 1500 bp panel with 500k single-end
    100 bp reads, (b) the homolog panel (62 families x 8 genes sharing a
-   300 bp core) with 100k reads, (c) the panel with 50k read pairs. Each
-   run's ssv and FASTQ bytes must equal a --backend cpu run of the port
-   on its first 20k reads, and 2000 reads must agree with the port's
-   oracle. Every kernel's launch counter, zeroed before (a), must be
-   positive after (c).
+   300 bp core) with 100k reads, (c) the panel with 50k read pairs, (d)
+   the transcriptome with 500k reads and --save-index (auto selection
+   takes xl), (e) --probe classic --load-index on that index and the
+   first 100k reads of (d). Runs (a)-(d) must write the bytes of a
+   --backend cpu run of the port on their first 20k reads ((d)'s through
+   --load-index, so through the xl probe-table cache), and 2000 reads of
+   each must agree with the port's oracle; (e) must write the prefix of
+   (d)'s bytes. The launch counters are zeroed before each path and read
+   after it: (a)-(c) launch the hashed path's kernels, (d) the xl path's,
+   (e) the classic path's.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
@@ -36,6 +46,8 @@ writes the kernels' record and the end-to-end stats there.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -53,6 +65,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 K, C, BF_GB = 17, 0.6, 1
 READ_LEN = 100
 N_PANEL_READS, N_HOMOLOG_READS, N_PAIRS = 500_000, 100_000, 50_000
+N_TXOME_READS, N_CLASSIC_READS = 500_000, 100_000
+TXOME_GENES = 50_000
 N_CPU_CHECK, N_ORACLE_CHECK = 20_000, 2_000
 SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
 RECORD_SHAPE = (65536, 104)  # bench.py's batch: the shape the record holds
@@ -72,6 +86,16 @@ KERNEL_INFO = {
                "shark_tpu/classify/step.py:869"),
     "pairs": ("extract_pairs", "shark_tpu_torch/csrc/pairs.cu",
               "shark_tpu/classify/step.py:378"),
+    "probe_xl": ("probe_xl", "shark_tpu_torch/csrc/xl.cu",
+                 "shark_tpu/classify/hashed.py:568"),
+    "classic": ("probe_tags", "shark_tpu_torch/csrc/classic.cu",
+                "shark_tpu/classify/step.py:687"),
+}
+# the kernels each end-to-end path must launch
+PATH_KERNELS = {
+    "hashed": ("front", "probe", "finish", "pairs"),
+    "xl": ("front", "probe_xl", "finish"),
+    "classic": ("front", "classic", "finish"),
 }
 
 
@@ -115,6 +139,19 @@ def homolog_genes(rng, n_genes=500, length=1500, core=300):
             ACGT[rng.integers(0, 4, size=start)], shared,
             ACGT[rng.integers(0, 4, size=length - start - core)],
         ]))
+    return genes
+
+
+def txome_genes(rng, n_genes=TXOME_GENES, length=1500, core=300, every=80,
+                members=8):
+    """bench/transcriptome_bench.py's genes: every `every`-th gene starts a
+    family of `members` that share a `core` bp middle; uint8[n, length]."""
+    genes = ACGT[rng.integers(0, 4, size=(n_genes, length), dtype=np.uint8)]
+    fam = np.flatnonzero(np.arange(n_genes) % every < members)
+    cores = ACGT[rng.integers(0, 4, size=(n_genes // every + 1, core),
+                              dtype=np.uint8)]
+    start = (length - core) // 2
+    genes[fam, start:start + core] = cores[fam // every]
     return genes
 
 
@@ -178,9 +215,10 @@ def write_fastq(path, reads, prefix: bytes):
         f.write(rec.tobytes())
 
 
-def codes_for_shape(rng, genes, B, L):
-    """Byte codes [B, L] of homolog reads: single 100 bp reads at L = 104,
-    fused pairs (mate 1, N, mate 2) at L = 208; invalid padding."""
+def codes_for_shape(rng, genes, B, L, single=homolog_reads):
+    """Byte codes [B, L]: single 100 bp reads (`single`, homolog reads by
+    default) at L = 104, fused pairs (mate 1, N, mate 2) at L = 208;
+    invalid padding."""
     from shark_tpu_torch.ops.kmers import BYTE_TO_CODE
 
     codes = np.full((B, L), 4, np.uint8)
@@ -189,7 +227,7 @@ def codes_for_shape(rng, genes, B, L):
         codes[:, :READ_LEN] = BYTE_TO_CODE[m1]
         codes[:, READ_LEN + 1:2 * READ_LEN + 1] = BYTE_TO_CODE[m2]
     else:
-        codes[:, :READ_LEN] = BYTE_TO_CODE[homolog_reads(rng, genes, B)]
+        codes[:, :READ_LEN] = BYTE_TO_CODE[single(rng, genes, B)]
     return codes
 
 
@@ -358,16 +396,112 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
             library_ms=timer(lambda: torch.sort(keys)),
             bound=bound(B * 4 + B * W * 4 + min(cap, B * W) * 4, B * W * 3),
         )
-        for name, r in rows.items():
-            lib = ("-" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
-            say(f"kernel {KERNEL_INFO[name][0]:<17} B={B:<6} L={L:<4} "
-                f"exact (max|err| {r['err']})  kernel_ms={r['ms']:.4f}  "
-                f"plain_ms={r['plain_ms']:.4f}  library_ms={lib}  "
-                f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}; bytes "
-                f"{r['bound'][2]:.4f}, operations {r['bound'][3]:.4f})")
+        say_rows(rows, B, L)
         say(f"kernel batch B={B} L={L}: group verdicts {grp}, "
             f"winner pairs {total} (cap {cap})")
+        if (B, L) == record_shape:
+            record = rows
+    return record
+
+
+def say_rows(rows, B, L):
+    for name, r in rows.items():
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        say(f"kernel {KERNEL_INFO[name][0]:<17} B={B:<6} L={L:<4} "
+            f"exact (max|err| {r['err']})  kernel_ms={r['ms']:.4f}  "
+            f"plain_ms={r['plain_ms']:.4f}  library_ms={lib}  "
+            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}; bytes "
+            f"{r['bound'][2]:.4f}, operations {r['bound'][3]:.4f})")
+
+
+def xl_geometry(clf):
+    """The xl layout's geometry: lgB, side_lgB, side-stash rows and the
+    share of buckets flagged as overflowed."""
+    from shark_tpu_torch.classify.hashed import XL_FLAG_BIT
+
+    h = clf._hmeta
+    w0 = clf.dix.table[:, 0].view(torch.int32)
+    flagged = int(((w0 >> XL_FLAG_BIT) & 1).sum())
+    stash = clf.dix.side_stash.view(torch.int32)
+    return dict(lgB=h.lgB, side_lgB=h.side_lgB, has_side=h.has_side,
+                side_stash_rows=int((stash[:, 1] != -1).sum()),
+                flagged_share=flagged / clf.dix.table.shape[0])
+
+
+def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer):
+    """Phase 3 on the transcriptome index: K6 (xl, through xclf's tables)
+    and K5 (classic, through cclf's) on the same windows. Returns their
+    record at record_shape."""
+    from shark_tpu_torch.classify import hashed, step
+
+    xdix, hmeta = xclf.dix, xclf._hmeta
+    cdix = cclf.dix
+    dev = xclf.device
+    rng = np.random.default_rng(2025)
+    record = {}
+    for B, L in shapes:
+        meta, _ = xclf._geometry(L)
+        codes = torch.from_numpy(
+            codes_for_shape(rng, genes, B, L, single=panel_reads)).to(dev)
+        idx_hi, idx_lo, win_valid, _ = step.front_end(
+            *step.pack_codes(codes), meta)
+        n = idx_lo.numel()
+        lo = idx_lo.to(torch.int64)
+        hi = idx_hi.to(torch.int64)
+        rows = {}
+
+        # K6 -------------------------------------------------------------
+        args6 = (idx_hi, idx_lo, win_valid, xdix.table, xdix.side,
+                 xdix.side_stash, hmeta)
+        k6 = hashed.probe_xl(*args6)
+        e6 = same("probe_xl", k6, hashed.probe_xl_plain(*args6))
+        bucket = lo & ((1 << hmeta.lgB) - 1)
+        tbl = xdix.table.view(torch.int32)
+        flagged = ((tbl[bucket, 0] >> hashed.XL_FLAG_BIT) & 1) == 1
+        no_side = dataclasses.replace(hmeta, has_side=False)
+        tag0, _ = hashed.probe_xl_plain(*args6[:-1], no_side)
+        need_side = win_valid & flagged & (tag0 == 0)
+        n_side = int(need_side.sum())
+        touched = int(torch.unique(bucket[win_valid]).numel())
+        side_b = lo[need_side] & ((1 << hmeta.side_lgB) - 1)
+        side_touched = int(torch.unique(side_b).numel())
+        S = xdix.side_stash.shape[0]
+        nbytes = (n * 9 + touched * 16 + side_touched * 64
+                  + (S * 16 if n_side else 0) + n * 8)
+        rows["probe_xl"] = dict(
+            err=e6,
+            ms=timer(lambda: hashed.probe_xl(*args6)),
+            plain_ms=timer(lambda: hashed.probe_xl_plain(*args6)),
+            library_ms=timer(lambda: tbl[bucket]),
+            bound=bound(nbytes, n * (4 * 4 + 10) + n_side * (4 * 8 + 4 * S
+                                                               + 10)),
+        )
+
+        # K5 -------------------------------------------------------------
+        args5 = (idx_hi, idx_lo, win_valid, cdix.bf_rank, cdix.pay)
+        k5 = step.probe_tags(*args5)
+        e5 = same("probe_tags", k5, step.probe_tags_plain(*args5))
+        word = (hi << 27) | (lo >> 5)
+        rank, hit = step.probe_rank_plain(cdix.bf_rank, word, lo & 31,
+                                          win_valid)
+        touched_words = int(torch.unique(word[win_valid]).numel())
+        hit_ranks = int(torch.unique(rank[hit]).numel())
+        nbytes = n * 9 + touched_words * 8 + hit_ranks * 8 + n * 8
+        bfr = cdix.bf_rank.view(torch.int32)
+        payr = cdix.pay.view(torch.int32)
+        rows["classic"] = dict(
+            err=e5,
+            ms=timer(lambda: step.probe_tags(*args5)),
+            plain_ms=timer(lambda: step.probe_tags_plain(*args5)),
+            library_ms=timer(lambda: (bfr[word], payr[rank])),
+            bound=bound(nbytes, n * 12),
+        )
+        say_rows(rows, B, L)
+        say(f"kernel batch B={B} L={L} (transcriptome): windows {n}, "
+            f"side windows {n_side} ({n_side / n:.4%}), touched xl buckets "
+            f"{touched}, bf_rank words {touched_words}, hit ranks "
+            f"{hit_ranks}")
         if (B, L) == record_shape:
             record = rows
     return record
@@ -414,67 +548,59 @@ def run_cli(argv):
     need(rc == 0, f"shark_tpu_torch {' '.join(argv)} exited {rc}")
 
 
-def e2e(work, name, genes, prefix, reads1, reads2=None):
-    """One end-to-end phase: GPU run, --backend cpu run on the first
-    N_CPU_CHECK reads, oracle agreement on the first N_ORACLE_CHECK."""
-    from shark_tpu_torch.classify.oracle import (
-        build_oracle_index,
-        classify_read,
-        fuse_pair,
-    )
-
-    d = os.path.join(work, name)
-    os.makedirs(d)
-    fa = os.path.join(d, "genes.fa")
-    write_fasta(fa, genes, prefix)
+def write_workload(d, genes, prefix, reads1, reads2=None, fa=None,
+                   subsets=(("head", N_CPU_CHECK),)):
+    """The FASTA (unless given) and the FASTQ files of one workload: all
+    reads, and the first n of each named subset. Returns (fa, files)."""
+    os.makedirs(d, exist_ok=True)
+    if fa is None:
+        fa = os.path.join(d, "genes.fa")
+        write_fasta(fa, genes, prefix)
     rp = b"p" if reads2 is not None else b"r"
     files = {}
-    for tag, sub in (("all", None), ("head", N_CPU_CHECK)):
+    for tag, sub in (("all", None),) + tuple(subsets):
         for mate, reads in (("1", reads1), ("2", reads2)):
             if reads is None:
                 continue
             path = os.path.join(d, f"{tag}_{mate}.fq")
             write_fastq(path, reads if sub is None else reads[:sub], rp)
             files[tag, mate] = path
+    return fa, files
 
-    def argv(tag, backend):
-        a = ["-r", fa, "-1", files[tag, "1"],
-             "-o", os.path.join(d, f"{tag}_{backend}.1.fq"),
-             "--ssv", os.path.join(d, f"{tag}_{backend}.ssv"),
-             "-k", str(K), "-c", str(C), "-b", str(BF_GB),
-             "--stats-json", os.path.join(d, f"{tag}_{backend}.json")]
-        if reads2 is not None:
-            a += ["-2", files[tag, "2"],
-                  "-p", os.path.join(d, f"{tag}_{backend}.2.fq")]
-        if backend == "cpu":
-            a += ["--backend", "cpu"]
-        return a
 
-    t0 = time.perf_counter()
-    run_cli(argv("all", "gpu"))
-    wall = time.perf_counter() - t0
-    with open(os.path.join(d, "all_gpu.json")) as f:
-        stats = json.load(f)
-    need(stats["n_reads"] == len(reads1), f"{name}: read count {stats}")
-    need(stats["probe"] == "hashed", f"{name}: probe {stats['probe']}")
-    run_cli(argv("head", "cpu"))
-    gpu_ssv = os.path.join(d, "all_gpu.ssv")
-    got, size = parse_ssv(gpu_ssv, N_CPU_CHECK)
-    with open(gpu_ssv, "rb") as f:
-        gpu_head = f.read(size)
-    with open(os.path.join(d, "head_cpu.ssv"), "rb") as f:
-        need(gpu_head == f.read(), f"{name}: GPU ssv != --backend cpu ssv")
-    for mate in ("1", "2") if reads2 is not None else ("1",):
-        with open(os.path.join(d, f"head_cpu.{mate}.fq"), "rb") as f:
-            need(fastq_prefix(os.path.join(d, f"all_gpu.{mate}.fq"),
-                              N_CPU_CHECK) == f.read(),
-                 f"{name}: GPU FASTQ {mate} != --backend cpu FASTQ")
-    need(len(got) > N_CPU_CHECK // 4, f"{name}: only {len(got)} reads emitted")
+def run_tag(d, fa, files, tag, out, extra=()):
+    """One CLI run on the `tag` reads, outputs named `out`; its stats."""
+    a = ["-r", fa, "-1", files[tag, "1"],
+         "-o", os.path.join(d, f"{out}.1.fq"),
+         "--ssv", os.path.join(d, f"{out}.ssv"),
+         "-k", str(K), "-c", str(C), "-b", str(BF_GB),
+         "--stats-json", os.path.join(d, f"{out}.json"), *extra]
+    if (tag, "2") in files:
+        a += ["-2", files[tag, "2"], "-p", os.path.join(d, f"{out}.2.fq")]
+    run_cli(a)
+    with open(os.path.join(d, f"{out}.json")) as f:
+        return json.load(f)
 
-    oracle = build_oracle_index(
-        [(f"{prefix.decode()}{g:05d}", s.tobytes()) for g, s in enumerate(genes)],
-        K, BF_GB << 33)
-    agree = 0
+
+def same_prefix(d, name, run, ref, n_first, paired):
+    """The ssv and FASTQ bytes of `run` on its reads below n_first equal
+    the whole outputs of `ref`. Returns {read: genes} of that prefix."""
+    got, size = parse_ssv(os.path.join(d, f"{run}.ssv"), n_first)
+    with open(os.path.join(d, f"{run}.ssv"), "rb") as f:
+        head = f.read(size)
+    with open(os.path.join(d, f"{ref}.ssv"), "rb") as f:
+        need(head == f.read(), f"{name}: {run} ssv != {ref} ssv")
+    for mate in ("1", "2") if paired else ("1",):
+        with open(os.path.join(d, f"{ref}.{mate}.fq"), "rb") as f:
+            need(fastq_prefix(os.path.join(d, f"{run}.{mate}.fq"), n_first)
+                 == f.read(), f"{name}: {run} FASTQ {mate} != {ref} FASTQ")
+    return got
+
+
+def oracle_agrees(name, oracle, got, reads1, reads2=None):
+    """The first N_ORACLE_CHECK reads' genes equal the oracle's."""
+    from shark_tpu_torch.classify.oracle import classify_read, fuse_pair
+
     for i in range(N_ORACLE_CHECK):
         r1 = (f"{i}", reads1[i].tobytes(), b"I" * READ_LEN)
         r2 = None if reads2 is None else (f"{i}", reads2[i].tobytes(),
@@ -483,17 +609,101 @@ def e2e(work, name, genes, prefix, reads1, reads2=None):
         want = [oracle.gene_names[g] for g in wins]
         need(got.get(i, []) == want,
              f"{name}: read {i}: GPU {got.get(i, [])} != oracle {want}")
-        agree += 1
+    return N_ORACLE_CHECK
+
+
+def say_e2e(name, stats, note):
     rps = stats["n_reads"] / stats["classify_s"]
-    say(f"e2e {name}: reads={stats['n_reads']} "
+    say(f"e2e {name}: probe={stats['probe']} reads={stats['n_reads']} "
         f"associations={stats['n_associations']} "
         f"reads_out={stats['n_reads_out']} group_rows={stats['group_rows']} "
         f"classify_s={stats['classify_s']:.3f} reads_per_s={rps:.0f} "
         f"warmup_s={stats['warmup_s']:.2f} index_s={stats['index_s']:.2f} "
-        f"wall_s={wall:.2f}; GPU == --backend cpu on {N_CPU_CHECK} reads "
-        f"(ssv, FASTQ); {agree} reads agree with the oracle")
-    stats["wall_s"] = wall
+        f"wall_s={stats['wall_s']:.2f}; {note}")
+
+
+def e2e(work, name, genes, prefix, reads1, reads2=None):
+    """One end-to-end phase on a panel: GPU run, --backend cpu run on the
+    first N_CPU_CHECK reads, oracle agreement on the first
+    N_ORACLE_CHECK."""
+    from shark_tpu_torch.classify.oracle import build_oracle_index
+
+    d = os.path.join(work, name)
+    fa, files = write_workload(d, genes, prefix, reads1, reads2)
+    t0 = time.perf_counter()
+    stats = run_tag(d, fa, files, "all", "all_gpu")
+    stats["wall_s"] = time.perf_counter() - t0
+    need(stats["n_reads"] == len(reads1), f"{name}: read count {stats}")
+    need(stats["probe"] == "hashed", f"{name}: probe {stats['probe']}")
+    run_tag(d, fa, files, "head", "head_cpu", ["--backend", "cpu"])
+    got = same_prefix(d, name, "all_gpu", "head_cpu", N_CPU_CHECK,
+                      reads2 is not None)
+    need(len(got) > N_CPU_CHECK // 4, f"{name}: only {len(got)} reads emitted")
+    oracle = build_oracle_index(
+        [(f"{prefix.decode()}{g:05d}", s.tobytes()) for g, s in enumerate(genes)],
+        K, BF_GB << 33)
+    agree = oracle_agrees(name, oracle, got, reads1, reads2)
+    say_e2e(name, stats, f"GPU == --backend cpu on {N_CPU_CHECK} reads "
+                         f"(ssv, FASTQ); {agree} reads agree with the oracle")
     return stats
+
+
+def e2e_txome(d, fa, reads, launches):
+    """(d) the transcriptome through the CLI's defaults (auto selection:
+    xl) with --save-index, held against a --backend cpu --load-index run
+    and the oracle; (e) --probe classic --load-index on its first
+    N_CLASSIC_READS reads, held against (d)'s bytes. Each GPU run's
+    launches go to launches["xl"] / launches["classic"]."""
+    from shark_tpu_torch import kernels
+    from shark_tpu_torch.classify import table_cache
+    from shark_tpu_torch.index.structure import SharkIndex
+    from shark_tpu_torch.pipeline import _ShimIndex
+
+    _, files = write_workload(
+        d, None, None, reads, fa=fa,
+        subsets=(("head", N_CPU_CHECK), ("classic", N_CLASSIC_READS)))
+    idx = os.path.join(d, "index")
+    out = {}
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    stats = run_tag(d, fa, files, "all", "all_gpu", ["--save-index", idx])
+    stats["wall_s"] = time.perf_counter() - t0
+    launches["xl"] = kernels.LAUNCHES.snapshot()
+    need(stats["n_reads"] == len(reads), f"txome: read count {stats}")
+    need(stats["probe"] == "xl", f"txome: probe {stats['probe']}")
+    table_cache.join_pending()
+    with open(idx + ".tables/meta.json") as f:
+        cached = json.load(f)
+    need(cached["kind"] == "xl", f"txome: cached table kind {cached['kind']}")
+    stats["xl_hmeta"] = cached["hmeta"]
+    cpu = run_tag(d, fa, files, "head", "head_cpu",
+                  ["--backend", "cpu", "--load-index", idx])
+    need(cpu["probe"] == "xl", f"txome --backend cpu: probe {cpu['probe']}")
+    got = same_prefix(d, "txome", "all_gpu", "head_cpu", N_CPU_CHECK, False)
+    need(len(got) > N_CPU_CHECK // 4, f"txome: only {len(got)} reads emitted")
+    agree = oracle_agrees("txome", _ShimIndex(SharkIndex.load(idx)), got,
+                          reads)
+    say_e2e("txome", stats, f"xl tables {json.dumps(cached['hmeta'])}; GPU "
+            f"== --backend cpu --load-index (xl table cache) on "
+            f"{N_CPU_CHECK} reads (ssv, FASTQ); {agree} reads agree with "
+            "the oracle")
+    out["txome"] = stats
+    gc.collect()
+
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    stats = run_tag(d, fa, files, "classic", "classic_gpu",
+                    ["--probe", "classic", "--load-index", idx])
+    stats["wall_s"] = time.perf_counter() - t0
+    launches["classic"] = kernels.LAUNCHES.snapshot()
+    need(stats["probe"] == "classic", f"classic: probe {stats['probe']}")
+    need(stats["n_reads"] == N_CLASSIC_READS, f"classic: read count {stats}")
+    same_prefix(d, "classic", "all_gpu", "classic_gpu", N_CLASSIC_READS,
+                False)
+    say_e2e("classic", stats, f"its bytes equal (d)'s on its "
+                              f"{N_CLASSIC_READS} reads (ssv, FASTQ)")
+    out["classic"] = stats
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -545,8 +755,9 @@ def main() -> int:
     kernels.lib()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    say(f"build: nvcc {nvcc_s:.1f} s (4 sources in parallel), g++ native "
-        f"engine {gpp['s']:.1f} s")
+    n_src = sum(src.endswith(".cu") for src in kernels.sources())
+    say(f"build: nvcc {nvcc_s:.1f} s ({n_src} sources in parallel), g++ "
+        f"native engine {gpp['s']:.1f} s")
     for ln in ptxas:
         say(f"  ptxas: {ln}")
 
@@ -563,20 +774,61 @@ def main() -> int:
         f"stash {clf.dix.stash.shape[0]}), rows3 {tuple(clf.dix.rows3.shape)}"
         f", built in {time.perf_counter() - t0:.1f} s")
     shapes = [(8192, 104)] if args.quick else SHAPES
-    record = check_kernels(clf, hgenes, shapes,
-                           shapes[0] if args.quick else RECORD_SHAPE, Timer())
-    if args.quick:
-        say(f"quick check done in {time.perf_counter() - t_start:.0f} s")
-        return 3  # no result line: --quick is not the smoke test
+    record_shape = shapes[0] if args.quick else RECORD_SHAPE
+    timer = Timer()
+    record = check_kernels(clf, hgenes, shapes, record_shape, timer)
+    del clf
 
-    # 4. end to end through the CLI
+    # ... and K5/K6 on the transcriptome's index, which the C++ engine
+    # builds from the FASTA that phase 4 (d) reads
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
+        need(native.available(), "the transcriptome phases need the native "
+                                 "engine")
+        tx_dir = os.path.join(work, "txome")
+        os.makedirs(tx_dir)
+        t0 = time.perf_counter()
+        tgenes = txome_genes(np.random.default_rng(2026))
+        tx_fa = os.path.join(tx_dir, "genes.fa")
+        write_fasta(tx_fa, tgenes, b"G")
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tindex = native.build_index_native(tx_fa, K, BF_GB << 33,
+                                           threads=os.cpu_count())
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xclf = Classifier(tindex, max_winners=16, c=C)
+        xl_s = time.perf_counter() - t0
+        need(xclf.probe == "xl", f"transcriptome: probe {xclf.probe}")
+        need(xclf._hmeta.has_side, "transcriptome: xl table without a side")
+        geometry = xl_geometry(xclf)
+        t0 = time.perf_counter()
+        cclf = Classifier(tindex, max_winners=16, c=C, probe="classic")
+        classic_s = time.perf_counter() - t0
+        say(f"kernels: transcriptome {tindex.n_genes} genes, "
+            f"{tindex.n_set_bits} set bits (generated {gen_s:.1f} s, index "
+            f"{index_s:.1f} s); xl {json.dumps(geometry)} "
+            f"({xl_s:.1f} s, table {xclf.dix.table.numel() * 4 / 1e9:.2f} "
+            f"GB); classic tables {classic_s:.1f} s (bf_rank "
+            f"{cclf.dix.bf_rank.numel() * 4 / 1e9:.2f} GB, pay "
+            f"{cclf.dix.pay.numel() * 4 / 1e9:.2f} GB)")
+        record.update(check_txome_kernels(xclf, cclf, tgenes, shapes,
+                                          record_shape, timer))
+        del xclf, cclf, tindex
+        gc.collect()
+        torch.cuda.empty_cache()
+        if args.quick:
+            say(f"quick check done in {time.perf_counter() - t_start:.0f} s")
+            return 3  # no result line: --quick is not the smoke test
+
+        # 4. end to end through the CLI; the counters are zeroed before
+        # each path and read after it
         rng = np.random.default_rng(12345)
         pgenes = panel_genes(rng)
         e2e_stats = {}
+        launches = {}
         kernels.LAUNCHES.reset()
         e2e_stats["panel"] = e2e(work, "panel", pgenes, b"GENE",
                                  panel_reads(rng, pgenes, N_PANEL_READS))
@@ -586,22 +838,35 @@ def main() -> int:
         b = kernels.LAUNCHES.snapshot()
         e2e_stats["paired"] = e2e(work, "paired", pgenes, b"GENE",
                                   *pair_reads(rng, pgenes, N_PAIRS))
-        launches = kernels.LAUNCHES.snapshot()
+        launches["hashed"] = kernels.LAUNCHES.snapshot()
+        e2e_stats.update(e2e_txome(
+            tx_dir, tx_fa, panel_reads(np.random.default_rng(2027), tgenes,
+                                       N_TXOME_READS), launches))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    e2e_stats["txome"]["geometry_phase3"] = geometry
     need(e2e_stats["homolog"]["group_rows"] > 0, "homolog: no group verdicts")
     need(b["pairs"] > a["pairs"], "homolog: extract_pairs never launched")
-    say(f"launches over (a)-(c): {json.dumps(launches)} "
-        f"(after (a): {json.dumps(a)}, after (b): {json.dumps(b)})")
-    for name, count in launches.items():
-        need(count > 0, f"kernel {name} was not launched on the main path")
+    for path, counts in launches.items():
+        say(f"launches on the {path} path: {json.dumps(counts)}")
+        for name in PATH_KERNELS[path]:
+            need(counts[name] > 0,
+                 f"kernel {name} was not launched on the {path} path")
+        for name in ("probe", "probe_xl", "classic"):
+            if name not in PATH_KERNELS[path]:
+                need(counts[name] == 0,
+                     f"the {path} path launched the {name} kernel")
+    total = {name: sum(c[name] for c in launches.values())
+             for name in KERNEL_INFO}
+    say(f"launches over (a)-(e): {json.dumps(total)} (hashed path after "
+        f"(a): {json.dumps(a)}, after (b): {json.dumps(b)})")
 
     kernels_line = {"kernels": []}
     for name, (fn, src, replaces) in KERNEL_INFO.items():
         r = record[name]
         kernels_line["kernels"].append({
             "name": fn, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["err"],
+            "launches": total[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
@@ -613,8 +878,8 @@ def main() -> int:
                        "bounds_bytes_ops_ms": {
                            KERNEL_INFO[n][0]: record[n]["bound"][2:]
                            for n in KERNEL_INFO},
-                       "record_shape": RECORD_SHAPE, "e2e": e2e_stats}, f,
-                      indent=1)
+                       "record_shape": RECORD_SHAPE, "launches": launches,
+                       "e2e": e2e_stats}, f, indent=1)
     say(f"done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels_line))
     print(smi)

@@ -21,13 +21,19 @@ colliding k-mers share p and therefore share the entry.
 
 Entries that overflow a bucket's 8 slots go to a small stash compared
 against every probe. The table builders are numpy copies of shark_tpu's,
-so both packages build identical tables; the GB-scale xl layout
-(build_hashed_xl) is not in the port yet, and Classifier raises where
-shark_tpu would select it.
+so both packages build identical tables.
+
+Past the table budget (transcriptome scale) the xl layout (build_hashed_xl)
+keeps one bucket load per window: [n_buckets, 4] u32 buckets of entry16
+words with a 13-bit rest, bit 13 of slot 0's meta16 flagging a bucket that
+overflowed, and the overflowed entries in a small entry8 SIDE table (with
+its own stash), read only by windows of a flagged bucket that matched
+nothing in it. The xl layout has no main stash.
 
 K2, the probe (probe_hashed), runs csrc/probe.cu on a CUDA tensor and its
-plain PyTorch version on a CPU tensor; classify_kernel_hashed_packed
-composes K1 -> K2 -> K3.
+plain PyTorch version on a CPU tensor; K6, the xl probe with its side
+resolve (probe_xl), runs csrc/xl.cu or its plain version likewise.
+classify_kernel_hashed_packed composes K1 -> K2 or K6 -> K3.
 """
 
 from __future__ import annotations
@@ -46,8 +52,10 @@ from shark_tpu_torch.classify.step import (
     StaticMeta,
     finish_from_tags,
     front_end,
-    pack_codes,
+    gather_u32,
     pack_rows_u32,
+    require_windows,
+    to_device,
 )
 from shark_tpu_torch.index.structure import SharkIndex
 
@@ -59,8 +67,12 @@ STASH_MIN = 32
 MAX_TABLE_BYTES = 64 << 20
 MAX_BUCKETS = MAX_TABLE_BYTES // (8 * BUCKET_SLOTS)
 
-# shark_tpu's GB-scale "xl" layout constants. The layout is not ported;
-# the constants are part of the probe-table cache key.
+# The GB-scale "xl" layout: 16-byte buckets of XL_SLOTS entry16 words with
+# a 13-bit rest; bit XL_FLAG_BIT of slot 0's word flags an overflowed
+# bucket, whose spills live in the side table (at most XL_SIDE_STASH_CAP
+# side-stash rows). XL_SIDE_CAP is shark_tpu's per-read compaction width
+# of the side lookup, a cost switch that changes no result; it stays for
+# the probe-table cache key.
 XL_SLOTS = 4
 XL_REST_BITS = 13
 XL_FLAG_BIT = 29
@@ -71,11 +83,15 @@ XL_MAX_LGB = 30
 
 class HashedDeviceIndex(NamedTuple):
     # entry16: uint32[n_buckets, slots] (meta16<<16 | pay16 per word);
-    # entry8:  uint32[n_buckets, 2, BUCKET_SLOTS] (w0 plane, w1 plane)
+    # entry8:  uint32[n_buckets, 2, BUCKET_SLOTS] (w0 plane, w1 plane);
+    # xl:      uint32[n_buckets, XL_SLOTS] (entry16 words, 13-bit rest,
+    #          flag bit; spills resolve through `side`/`side_stash`)
     table: torch.Tensor
     stash: torch.Tensor  # uint32[S, 4]: pos_lo, pos_hi, tag, payload
     rows3: torch.Tensor  # uint32[max(n_deg3,1), ceil((D3+1)/2)] packed rows
     ext_mat: Optional[torch.Tensor] = None  # uint16[n_ovf, ext3_w]
+    side: Optional[torch.Tensor] = None  # xl: uint32[2^side_lgB, 2, 8]
+    side_stash: Optional[torch.Tensor] = None  # xl: uint32[S2, 4]
 
 
 @dataclass(frozen=True)
@@ -84,9 +100,9 @@ class HashedMeta:
     has_rows: bool  # any degree >= 3 entry exists
     entry16: bool = False  # 4-byte entries (one u32 word each) vs 8-byte
     slots: int = BUCKET_SLOTS  # entry slots per bucket (entry16: 4 or 8)
-    xl: bool = False  # shark_tpu's xl layout (not ported)
-    side_lgB: int = 0
-    has_side: bool = False
+    xl: bool = False  # GB-scale 16-byte-row layout with a side table
+    side_lgB: int = 0  # log2 bucket count of the xl side table
+    has_side: bool = False  # any xl spill exists
 
 
 def _set_bit_positions(
@@ -258,6 +274,150 @@ def build_hashed_index(
     return None
 
 
+def build_hashed_xl(
+    index: SharkIndex,
+    lgB: Optional[int] = None,
+    side_lgB: Optional[int] = None,
+    threads: Optional[int] = None,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, HashedMeta]]:
+    """(table, side, side_stash, meta) for the GB-scale one-load layout,
+    or None when the classic path should be used instead (shark_tpu
+    hashed.build_hashed_xl, which builds the same arrays).
+
+    Sizing: buckets hold XL_SLOTS u32 words; entry slot demand is 1 word
+    per degree-1 entry and 2 for degree>=2 (payload halves, like entry16).
+    The natural bucket count puts ~1-2 demand words per 4-slot bucket, so
+    the spill mass stays near 1.5% of entries; the spills go to a SIDE
+    entry8 table read only by windows of a flagged bucket that matched
+    nothing there. `lgB`/`side_lgB` pin the geometries (tests)."""
+    n_set = index.n_set_bits
+    if n_set == 0 or n_set >= 1 << 31:
+        return None
+    lg_min = max(
+        6, int(np.ceil(np.log2(index.size_bits))) - XL_REST_BITS
+    )
+    if lg_min > XL_MAX_LGB:
+        return None  # bloom too large for 13-bit rest at any bucket count
+    spill_cap = max(n_set // 64, 1024)
+    decline_cap = max(n_set // 8, 4096)
+
+    def _cands(demand: int):
+        """Bucket-count candidates (shared by the native and numpy
+        builds so their selection policy cannot desynchronize)."""
+        if lgB is not None:
+            cs = [lgB]
+        else:
+            lg_nat = int(np.ceil(np.log2(max(demand, 2))))
+            cs = sorted(
+                {
+                    min(max(c, lg_min), XL_MAX_LGB)
+                    for c in (lg_nat - 1, lg_nat)
+                }
+            )
+        # bit 13 of meta16 is the overflow flag, so rest must fit 13 bits
+        # strictly at EVERY candidate (lg_min guarantees it for the auto
+        # ones; this guards a pinned lgB, which would otherwise bleed rest
+        # bits into the flag/tag fields)
+        assert (int(index.size_bits) - 1) >> cs[0] < (
+            1 << XL_REST_BITS
+        ), cs[0]
+        return cs
+
+    from shark_tpu_torch.io import native as _native
+
+    if _native.available():
+        # native pack: entry streams + bucket fill in one C++ pass. The
+        # candidate is chosen by the ACTUAL spill count at each geometry
+        # (try-pack) instead of the numpy path's word-demand bound; both
+        # are exact, but the auto-picked lgB can differ by 1 between them.
+        from shark_tpu_torch.classify.step import rows3_payload
+
+        deg = np.diff(index.offsets)
+        has_rows = bool((deg >= 3).any())
+        d3pay = (
+            rows3_payload(index) if has_rows else np.zeros(0, np.uint32)
+        )
+        demand = 2 * n_set - int(np.count_nonzero(deg == 1))
+        del deg
+        cands = _cands(demand)
+        table = spill = None
+        for c in cands:
+            cap = decline_cap if c == cands[-1] else 2 * spill_cap
+            res = _native.pack_xl_native(
+                index, d3pay, c, XL_SLOTS, True, cap, threads=threads
+            )
+            if res is not None:
+                table, spill, lgB = res[0], res[1], c
+                break
+        if table is None:
+            return None  # every candidate spilled past the decline cap
+    else:
+        pos, tag, payload, has_rows, deg = _entry_streams(
+            index, threads=threads
+        )
+        need = np.where(deg == 1, 1, 2).astype(np.int64)
+        demand = int(need.sum())
+        cands = _cands(demand)
+        if len(cands) > 1:
+            # choose the bucket count from a cheap slot-demand bound (one
+            # bincount per candidate) so the exact pack runs once: the
+            # smallest whose overflow bound stays ~1.5%
+            for c in cands:
+                demand_c = _demand_bincount(pos, need, c)
+                bound = int((demand_c - XL_SLOTS).clip(min=0).sum())
+                if bound <= 2 * spill_cap or c == cands[-1]:
+                    cands = [c]
+                    break
+        lgB = cands[0]
+        assert int(pos.max(initial=0)) >> lgB < (1 << XL_REST_BITS), lgB
+        table, spill = _pack_table(
+            pos, tag, payload, need, lgB, True, XL_SLOTS
+        )
+        if spill.shape[0] > decline_cap:
+            return None  # degenerate distribution; classic path is safer
+
+    n_sp = spill.shape[0]
+    if n_sp:
+        # flag every overflowed bucket (bit 13 of slot-0's meta16): probes
+        # that miss in a flagged bucket must consult the side table
+        spos = _stash_positions(spill)
+        sbuck = (spos & np.uint64((1 << lgB) - 1)).astype(np.int64)
+        table[np.unique(sbuck), 0] |= np.uint32(1 << XL_FLAG_BIT)
+
+        lg2_min = max(6, int(np.ceil(np.log2(index.size_bits))) - 30)
+        lg2 = side_lgB if side_lgB is not None else max(
+            lg2_min, int(np.ceil(np.log2(max(n_sp, 2)))) - 2
+        )
+        side = None
+        for c2 in range(lg2, min(lg2 + 8, XL_MAX_LGB + 1)):
+            s, st = _pack_table(
+                spos, spill[:, 2].astype(np.int64), spill[:, 3], None, c2,
+                False,
+            )
+            if st.shape[0] <= XL_SIDE_STASH_CAP:
+                side, side_stash_rows, lg2 = s, st, c2
+                break
+            if side_lgB is not None:
+                return None  # pinned geometry cannot absorb its spills
+        if side is None:
+            return None
+    else:
+        lg2 = 6
+        side = np.zeros((1 << lg2, 2, BUCKET_SLOTS), np.uint32)
+        side_stash_rows = np.empty((0, 4), np.uint32)
+
+    meta = HashedMeta(
+        lgB=lgB,
+        has_rows=has_rows,
+        entry16=True,
+        slots=XL_SLOTS,
+        xl=True,
+        side_lgB=lg2,
+        has_side=n_sp > 0,
+    )
+    return table, side, _pad_stash(side_stash_rows), meta
+
+
 def _stash_positions(rows: np.ndarray) -> np.ndarray:
     """uint64 positions from stash-layout rows (pos_lo, pos_hi, ...)."""
     return rows[:, 0].astype(np.uint64) | (
@@ -346,6 +506,11 @@ def _pad_stash(stash: np.ndarray) -> np.ndarray:
     return np.vstack([stash, pad]) if stash.size else pad
 
 
+def empty_stash() -> np.ndarray:
+    """The padded stash of a layout without one (xl): no row can match."""
+    return _pad_stash(np.empty((0, 4), np.uint32))
+
+
 def hashed_device_index(
     table: np.ndarray,
     stash: np.ndarray,
@@ -353,71 +518,109 @@ def hashed_device_index(
     ext_mat: Optional[np.ndarray],
     hmeta,
     device,
+    side: Optional[np.ndarray] = None,
+    side_stash: Optional[np.ndarray] = None,
 ) -> Tuple[HashedDeviceIndex, HashedMeta]:
-    """Device tables from the numpy arrays exactly as build_hashed_index
-    and build_rows3 (of either package) built them. `hmeta` is a
-    HashedMeta of either package, or a dict of its fields. rows3 may come
-    as u16 rows (shark_tpu's placeholder for a row-free index) and is
-    packed two fields per u32 word, the kernels' layout."""
+    """Device tables from the numpy arrays exactly as build_hashed_index /
+    build_hashed_xl and build_rows3 (of either package) built them. `hmeta`
+    is a HashedMeta of either package, or a dict of its fields. An xl
+    table comes with its `side` and `side_stash`. rows3 may come as u16
+    rows (shark_tpu's placeholder for a row-free index) and is packed two
+    fields per u32 word, the kernels' layout."""
     if not isinstance(hmeta, dict):
         hmeta = {f.name: getattr(hmeta, f.name) for f in fields(HashedMeta)}
     hmeta = HashedMeta(**hmeta)
-    if hmeta.xl:
-        from shark_tpu_torch.config import not_ported
-
-        raise not_ported("the xl probe layout", "xl probe")
+    if hmeta.xl and (side is None or side_stash is None):
+        raise ValueError("an xl table needs its side table and side stash")
     if rows3.dtype == np.uint16:
         rows3 = pack_rows_u32(rows3)
-
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
-
+    u32 = np.uint32
     dix = HashedDeviceIndex(
-        table=put(table, np.uint32),
-        stash=put(stash, np.uint32),
-        rows3=put(rows3, np.uint32),
-        ext_mat=put(ext_mat, np.uint16) if ext_mat is not None else None,
+        table=to_device(table, device, u32),
+        stash=to_device(stash, device, u32),
+        rows3=to_device(rows3, device, u32),
+        ext_mat=to_device(ext_mat, device, np.uint16),
+        side=to_device(side, device, u32),
+        side_stash=to_device(side_stash, device, u32),
     )
     return dix, hmeta
+
+
+def _bucket_rest(lo, hi, lgB: int):
+    """(bucket, rest) of int64 positions (lo, hi) in a 2^lgB-bucket table;
+    rest wraps to 32 bits as the u32 arithmetic of the kernels does."""
+    rest = (lo >> lgB) | ((hi << (32 - lgB)) & 0xFFFFFFFF)
+    return lo & ((1 << lgB) - 1), rest
+
+
+def _match16(row, rest, valid, rest_mask: int):
+    """entry16 lanes (int64 words [..., slots]): a degree-2 or row entry
+    spans two adjacent words, so up to two lanes match; payload = first
+    match's low half | (sum of later matches) << 16, tag = max tag.
+    Returns (tag, pay, any lane matched)."""
+    slots = row.shape[-1]
+    zero = torch.zeros((), dtype=torch.int64, device=row.device)
+    meta_l = row >> 16
+    pay_l = row & 0xFFFF
+    lane_tag = meta_l >> 14
+    m = ((meta_l & rest_mask) == rest[..., None]) & (lane_tag != 0) \
+        & valid[..., None]
+    iota = torch.arange(slots, device=row.device)
+    fs = torch.where(m, iota, slots).min(dim=-1, keepdim=True).values
+    p0 = torch.where(m & (iota == fs), pay_l, zero).sum(dim=-1)
+    p1 = torch.where(m & (iota > fs), pay_l, zero).sum(dim=-1)
+    tagv = torch.where(m, lane_tag, zero).max(dim=-1).values
+    return tagv, p0 | (p1 << 16), m.any(dim=-1)
+
+
+def _match8(row, rest, valid):
+    """entry8 lanes (planar int64 [..., 2, 8]): at most one lane matches,
+    so tag and payload are masked sums."""
+    zero = torch.zeros((), dtype=torch.int64, device=row.device)
+    w0 = row[..., 0, :]
+    w1 = row[..., 1, :]
+    lane_tag = w0 >> 30
+    m = ((w0 & 0x3FFFFFFF) == rest[..., None]) & (lane_tag != 0) \
+        & valid[..., None]
+    return (torch.where(m, lane_tag, zero).sum(dim=-1),
+            torch.where(m, w1, zero).sum(dim=-1))
+
+
+def _add_stash(lo, hi, valid, stash, tagv, payv):
+    """Add every stash row (pos_lo, pos_hi, tag, payload) whose full
+    position equals the window's, one row at a time (at most one can
+    match a position; the sum is shark_tpu's masked sum)."""
+    zero = torch.zeros((), dtype=torch.int64, device=lo.device)
+    st = stash.to(torch.int64)
+    for s in range(st.shape[0]):
+        hit = (lo == st[s, 0]) & (hi == st[s, 1]) & valid
+        tagv = tagv + torch.where(hit, st[s, 2], zero)
+        payv = payv + torch.where(hit, st[s, 3], zero)
+    return tagv, payv
+
+
+def _u32(tagv, payv):
+    mask = 0xFFFFFFFF
+    return (tagv & mask).to(torch.uint32), (payv & mask).to(torch.uint32)
 
 
 def probe_hashed_plain(idx_hi, idx_lo, win_valid, table, stash, hmeta):
     """Plain version of K2 in int64 (shark_tpu hashed.py:563-644)."""
     lo = idx_lo.to(torch.int64)
     hi = idx_hi.to(torch.int64)
-    lgB = hmeta.lgB
-    bucket = lo & ((1 << lgB) - 1)
-    rest = (lo >> lgB) | ((hi << (32 - lgB)) & 0xFFFFFFFF)
-    row = table.to(torch.int64)[bucket]
-    valid = win_valid[..., None]
-    zero = torch.zeros((), dtype=torch.int64, device=lo.device)
+    bucket, rest = _bucket_rest(lo, hi, hmeta.lgB)
+    row = gather_u32(table, bucket)
     if hmeta.entry16:
-        meta_l = row >> 16  # [..., slots]
-        pay_l = row & 0xFFFF
-        lane_tag = meta_l >> 14
-        m = ((meta_l & 0x3FFF) == rest[..., None]) & (lane_tag != 0) & valid
-        iota = torch.arange(hmeta.slots, device=lo.device)
-        fs = torch.where(m, iota, hmeta.slots).min(dim=-1, keepdim=True).values
-        p0 = torch.where(m & (iota == fs), pay_l, zero).sum(dim=-1)
-        p1 = torch.where(m & (iota > fs), pay_l, zero).sum(dim=-1)
-        tagv = torch.where(m, lane_tag, zero).max(dim=-1).values
-        payv = p0 | (p1 << 16)
+        tagv, payv, _ = _match16(row, rest, win_valid, 0x3FFF)
     else:
-        w0 = row[..., 0, :]
-        w1 = row[..., 1, :]
-        lane_tag = w0 >> 30
-        m = ((w0 & 0x3FFFFFFF) == rest[..., None]) & (lane_tag != 0) & valid
-        tagv = torch.where(m, lane_tag, zero).sum(dim=-1)
-        payv = torch.where(m, w1, zero).sum(dim=-1)
-    # stash rows: full-position compare, one row at a time (at most one
-    # can match a position; the sum is shark_tpu's masked sum)
-    st = stash.to(torch.int64)
-    for s in range(st.shape[0]):
-        hit = (lo == st[s, 0]) & (hi == st[s, 1]) & win_valid
-        tagv = tagv + torch.where(hit, st[s, 2], zero)
-        payv = payv + torch.where(hit, st[s, 3], zero)
-    mask = 0xFFFFFFFF
-    return (tagv & mask).to(torch.uint32), (payv & mask).to(torch.uint32)
+        tagv, payv = _match8(row, rest, win_valid)
+    return _u32(*_add_stash(lo, hi, win_valid, stash, tagv, payv))
+
+
+def _check_stash(stash, name, cap, dev):
+    kernels.require(stash, name, torch.uint32, 2, dev)
+    if stash.shape[1] != 4 or stash.shape[0] > cap:
+        raise ValueError(f"{name} shape {tuple(stash.shape)}")
 
 
 def probe_hashed(
@@ -432,16 +635,11 @@ def probe_hashed(
     one bucket of the entry16 or entry8 table plus the stash. CUDA tensors
     run csrc/probe.cu; CPU tensors the plain version."""
     if hmeta.xl:
-        from shark_tpu_torch.config import not_ported
-
-        raise not_ported("the xl probe layout", "xl probe")
+        raise ValueError("an xl table is probed by probe_xl")
     if not idx_lo.is_cuda:
         return probe_hashed_plain(idx_hi, idx_lo, win_valid, table, stash,
                                   hmeta)
-    dev = idx_lo.device
-    kernels.require(idx_hi, "idx_hi", torch.uint32, idx_lo.dim(), dev)
-    kernels.require(idx_lo, "idx_lo", torch.uint32, idx_lo.dim(), dev)
-    kernels.require(win_valid, "win_valid", torch.bool, idx_lo.dim(), dev)
+    dev = require_windows(idx_hi, idx_lo, win_valid)
     if hmeta.entry16:
         kernels.require(table, "table", torch.uint32, 2, dev)
         if table.shape[1] != hmeta.slots or hmeta.slots % 4:
@@ -452,9 +650,7 @@ def probe_hashed(
             raise ValueError(f"entry8 table shape {tuple(table.shape)}")
     if table.shape[0] != 1 << hmeta.lgB:
         raise ValueError("table rows != 2**lgB")
-    kernels.require(stash, "stash", torch.uint32, 2, dev)
-    if stash.shape[1] != 4 or stash.shape[0] > STASH_CAP:
-        raise ValueError(f"stash shape {tuple(stash.shape)}")
+    _check_stash(stash, "stash", STASH_CAP, dev)
     tagv = torch.empty_like(idx_lo)
     payv = torch.empty_like(idx_lo)
     rc = kernels.lib().shkk_probe(
@@ -464,6 +660,86 @@ def probe_hashed(
         payv.data_ptr(), kernels.stream(dev))
     kernels.check(rc, "probe")
     kernels.LAUNCHES.add("probe")
+    return tagv, payv
+
+
+def xl_side_resolve_plain(lo, hi, need_side, tagv, payv, side, side_stash,
+                          hmeta):
+    """Plain version of K6's side resolve (shark_tpu hashed.py:662
+    _xl_side_resolve), in int64: every need_side window (valid, flagged
+    bucket, no lane matched in the main row) takes the (tag, payload) of
+    the entry8 side bucket plus the side stash, overwriting its (0, 0)
+    even when the side misses too. Only those windows are gathered; the
+    values are those of both of shark_tpu's branches (compacted and full
+    width)."""
+    sel = need_side.nonzero(as_tuple=True)
+    slo, shi = lo[sel], hi[sel]
+    bucket2, rest2 = _bucket_rest(slo, shi, hmeta.side_lgB)
+    every = torch.ones_like(slo, dtype=torch.bool)
+    t, p = _match8(gather_u32(side, bucket2), rest2, every)
+    t, p = _add_stash(slo, shi, every, side_stash, t, p)
+    tagv = tagv.clone()
+    payv = payv.clone()
+    tagv[sel] = t
+    payv[sel] = p
+    return tagv, payv
+
+
+def probe_xl_plain(idx_hi, idx_lo, win_valid, table, side, side_stash, hmeta):
+    """Plain version of K6 in int64 (shark_tpu hashed.py:568-594): the
+    entry16 match of one 16-byte bucket with a 13-bit rest mask (the flag
+    in bit 13 of slot 0's meta never breaks a slot-0 match), then the side
+    resolve. The xl layout compares no main stash (hashed.py:629-633)."""
+    lo = idx_lo.to(torch.int64)
+    hi = idx_hi.to(torch.int64)
+    bucket, rest = _bucket_rest(lo, hi, hmeta.lgB)
+    row = gather_u32(table, bucket)
+    tagv, payv, matched = _match16(
+        row, rest, win_valid, (1 << XL_REST_BITS) - 1)
+    if hmeta.has_side:
+        flagged = ((row[..., 0] >> XL_FLAG_BIT) & 1) == 1
+        need_side = win_valid & flagged & ~matched
+        tagv, payv = xl_side_resolve_plain(
+            lo, hi, need_side, tagv, payv, side, side_stash, hmeta)
+    return _u32(tagv, payv)
+
+
+def probe_xl(
+    idx_hi: torch.Tensor,  # u32[B, Ls]
+    idx_lo: torch.Tensor,  # u32[B, Ls]
+    win_valid: torch.Tensor,  # bool[B, Ls]
+    table: torch.Tensor,  # u32[2^lgB, 4]
+    side: torch.Tensor,  # u32[2^side_lgB, 2, 8]
+    side_stash: torch.Tensor,  # u32[S2, 4]
+    hmeta: HashedMeta,
+):
+    """K6: Bloom positions -> (tagv u32[B, Ls], payv u32[B, Ls]) through
+    one xl bucket, and the side table for windows of a flagged bucket that
+    matched nothing. CUDA tensors run csrc/xl.cu; CPU tensors the plain
+    version."""
+    if not hmeta.xl:
+        raise ValueError("probe_xl takes an xl table")
+    if not idx_lo.is_cuda:
+        return probe_xl_plain(idx_hi, idx_lo, win_valid, table, side,
+                              side_stash, hmeta)
+    dev = require_windows(idx_hi, idx_lo, win_valid)
+    kernels.require(table, "table", torch.uint32, 2, dev)
+    if tuple(table.shape) != (1 << hmeta.lgB, XL_SLOTS):
+        raise ValueError(f"xl table shape {tuple(table.shape)}")
+    kernels.require(side, "side", torch.uint32, 3, dev)
+    if tuple(side.shape) != (1 << hmeta.side_lgB, 2, BUCKET_SLOTS):
+        raise ValueError(f"side table shape {tuple(side.shape)}")
+    _check_stash(side_stash, "side_stash", XL_SIDE_STASH_CAP, dev)
+    tagv = torch.empty_like(idx_lo)
+    payv = torch.empty_like(idx_lo)
+    rc = kernels.lib().shkk_probe_xl(
+        idx_hi.data_ptr(), idx_lo.data_ptr(), win_valid.data_ptr(),
+        idx_lo.numel(), table.data_ptr(), hmeta.lgB, side.data_ptr(),
+        hmeta.side_lgB, int(hmeta.has_side), side_stash.data_ptr(),
+        side_stash.shape[0], tagv.data_ptr(), payv.data_ptr(),
+        kernels.stream(dev))
+    kernels.check(rc, "probe_xl")
+    kernels.LAUNCHES.add("probe_xl")
     return tagv, payv
 
 
@@ -477,34 +753,19 @@ def classify_kernel_hashed_packed(
     hmeta: HashedMeta,
     max_winners: int,
 ):
-    """K1 -> K2 -> K3: planar reads -> (packed i32[B], winners i32[B, W],
-    best_cov i32[B], length i32[B]), bit-exact with shark_tpu's
-    classify_kernel_hashed_packed."""
+    """K1 -> K2 (or K6 for an xl table) -> K3: planar reads -> (packed
+    i32[B], winners i32[B, W], best_cov i32[B], length i32[B]), bit-exact
+    with shark_tpu's classify_kernel_hashed_packed."""
     L = packed.shape[1] * 4
     idx_hi, idx_lo, win_valid, length = front_end(packed, vmask, meta)
-    tagv, payv = probe_hashed(
-        idx_hi, idx_lo, win_valid, dix.table, dix.stash, hmeta
-    )
+    if hmeta.xl:
+        tagv, payv = probe_xl(idx_hi, idx_lo, win_valid, dix.table,
+                              dix.side, dix.side_stash, hmeta)
+    else:
+        tagv, payv = probe_hashed(idx_hi, idx_lo, win_valid, dix.table,
+                                  dix.stash, hmeta)
     return finish_from_tags(
         tagv, payv, length, thresh,
         rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta,
         max_winners=max_winners, L=L, has_rows=hmeta.has_rows,
-    )
-
-
-def classify_kernel_hashed(
-    dix: HashedDeviceIndex,
-    thresh: torch.Tensor,
-    codes: torch.Tensor,  # u8[B, L], L % 8 == 0
-    *,
-    meta: StaticMeta,
-    hmeta: HashedMeta,
-    max_winners: int,
-):
-    """Byte codes -> verdicts, through the planar packing of the main
-    path (pack_codes) and classify_kernel_hashed_packed."""
-    packed, vmask = pack_codes(codes)
-    return classify_kernel_hashed_packed(
-        dix, thresh, packed, vmask, meta=meta, hmeta=hmeta,
-        max_winners=max_winners,
     )

@@ -5,8 +5,10 @@ reads [B, L] it computes:
 
   1. K1, the front end (front_end): canonical k-mer, XXH64 and Bloom
      position of every probe window, and each read's length;
-  2. K2, the probe (classify/hashed.py probe_hashed): per window a
-     (tag, payload) from the hashed bucket table;
+  2. the probe of the index's layout, per window a (tag, payload): K2
+     through the hashed bucket table (classify/hashed.py probe_hashed),
+     K6 through the xl table and its side table (hashed.py probe_xl), or
+     K5 through the classic (word, rank) and pay rows (probe_tags);
   3. K3, the finish (finish_from_tags): the sort-based segmented coverage
      reduction to winners and one packed int32 verdict per read;
   4. K4, extract_pairs: the winners of tie-heavy batches as one sorted
@@ -422,6 +424,73 @@ def build_rows3(
         deg[d3], gene_flat, ext, geometry=geometry
     )
     return pack_rows_u32(gm16), ext_mat
+
+
+class DeviceIndex(NamedTuple):
+    """The classic probe's tables (shark_tpu step.DeviceIndex)."""
+
+    bf_rank: torch.Tensor  # u32[n_words, 2]: (Bloom word, rank before it)
+    pay: torch.Tensor  # u32[max(n_set, 1), 2]: build_pay rows
+    rows3: torch.Tensor  # u32[max(n_deg3, 1), ceil((D3+1)/2)] packed rows
+    ext_mat: Optional[torch.Tensor] = None  # u16[n_ovf, ext3_w]
+
+
+def build_pay(index: SharkIndex) -> np.ndarray:
+    """uint32[max(n_set,1), 2] tag/payload rows, one per set bit in CSR
+    rank order: word0 = tag<<30 | first_gene (tags 1/2), word1 = second
+    gene (tag 2) or the row's index into the compacted rows3 table
+    (tag 3)."""
+    deg = np.diff(index.offsets).astype(np.int64)
+    n_set = deg.size
+    pay = np.zeros((max(n_set, 1), 2), dtype=np.uint32)
+    if not n_set:
+        return pay
+    off = index.offsets[:-1].astype(np.int64)
+    gene_ids = np.asarray(index.gene_ids)
+    first_gene = gene_ids[np.minimum(off, max(gene_ids.size - 1, 0))].astype(
+        np.uint32
+    )
+    tag = np.where(
+        deg == 1, TAG_D1, np.where(deg == 2, TAG_D2, TAG_ROW)
+    ).astype(np.uint32)
+    d2 = deg == 2
+    d3 = deg >= 3
+    pay[:, 0] = (tag << 30) | np.where(d3, 0, first_gene)
+    w1 = np.zeros(n_set, np.uint32)
+    if d2.any():
+        w1[d2] = gene_ids[off[d2] + 1].astype(np.uint32)
+    if d3.any():
+        w1[d3] = rows3_payload(index)  # rows3 index (+ gid bits)
+    pay[:, 1] = w1
+    return pay
+
+
+def build_device_index(
+    index: SharkIndex,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Host-side construction of the classic DeviceIndex arrays (numpy):
+    (bf_rank, pay, rows3, ext_mat)."""
+    n_words = index.bf_words.size
+    bf_rank = np.empty((n_words, 2), dtype=np.uint32)
+    bf_rank[:, 0] = index.bf_words
+    bf_rank[:, 1] = index.word_rank
+    pay = build_pay(index)
+    rows3, ext_mat = build_rows3(index)
+    return bf_rank, pay, rows3, ext_mat
+
+
+def gather_u32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows table[idx] of a u32 table, widened to int64 only after the
+    gather (a GB-scale table is never copied whole). The gather runs on
+    the int32 view, which every device indexes."""
+    return table.view(torch.int32)[idx].to(torch.int64) & 0xFFFFFFFF
+
+
+def to_device(a: Optional[np.ndarray], device, dtype=None):
+    """A host table on `device` (None stays None)."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -866,6 +935,115 @@ def extract_pairs(packed: torch.Tensor, winners: torch.Tensor, cap: int):
 
 
 # ---------------------------------------------------------------------------
+# K5: the classic probe
+# ---------------------------------------------------------------------------
+
+
+def require_windows(idx_hi, idx_lo, win_valid) -> torch.device:
+    """Validate a probe kernel's window inputs (K1's outputs); returns
+    their device."""
+    dev = idx_lo.device
+    kernels.require(idx_hi, "idx_hi", torch.uint32, idx_lo.dim(), dev)
+    kernels.require(idx_lo, "idx_lo", torch.uint32, idx_lo.dim(), dev)
+    kernels.require(win_valid, "win_valid", torch.bool, idx_lo.dim(), dev)
+    return dev
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 values in [0, 2**32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def probe_rank_plain(bf_rank, word_idx, bit_off, win_valid):
+    """Bloom membership and exact CSR rank from one (word, rank) row per
+    window, in int64 (shark_tpu step.probe_rank). Returns (rank, hit);
+    rank is 0 where there is no hit."""
+    wr = gather_u32(bf_rank, word_idx)
+    w = wr[..., 0]
+    hit = (((w >> bit_off) & 1) == 1) & win_valid
+    low = (torch.ones_like(bit_off) << bit_off) - 1
+    rank = (wr[..., 1] + _popcount32(w & low)) & 0xFFFFFFFF
+    return torch.where(hit, rank, torch.zeros_like(rank)), hit
+
+
+def decode_pay_words(w0: torch.Tensor, w1: torch.Tensor):
+    """(tag, payload) of a build_pay row's two words, as int64 (shark_tpu
+    step.decode_pay_words). Zeroed words decode to tag 0 = miss."""
+    tagv = w0 >> 30
+    payv = torch.where(
+        tagv == TAG_ROW, w1, (w0 & 0xFFFF) | ((w1 & 0xFFFF) << 16)
+    )
+    return tagv, payv
+
+
+def probe_tags_plain(idx_hi, idx_lo, win_valid, bf_rank, pay):
+    """Plain version of K5 (shark_tpu step.probe_tags on the word/bit
+    addresses of hash_positions). A miss reads pay row 0 and zeroes only
+    its first word, so its payload is (pay[0, 1] & 0xFFFF) << 16, as in
+    shark_tpu."""
+    lo = idx_lo.to(torch.int64)
+    word_idx = (idx_hi.to(torch.int64) << 27) | (lo >> 5)
+    rank, hit = probe_rank_plain(bf_rank, word_idx, lo & 31, win_valid)
+    pw = gather_u32(pay, rank)
+    w0 = torch.where(hit, pw[..., 0], torch.zeros_like(rank))
+    tagv, payv = decode_pay_words(w0, pw[..., 1])
+    return tagv.to(torch.uint32), payv.to(torch.uint32)
+
+
+def probe_tags(
+    idx_hi: torch.Tensor,  # u32[B, Ls]
+    idx_lo: torch.Tensor,  # u32[B, Ls]
+    win_valid: torch.Tensor,  # bool[B, Ls]
+    bf_rank: torch.Tensor,  # u32[n_words, 2]
+    pay: torch.Tensor,  # u32[max(n_set, 1), 2]
+):
+    """K5, the classic probe: Bloom positions -> (tagv u32[B, Ls], payv
+    u32[B, Ls]) through a (word, rank) row and a pay row per window. CUDA
+    tensors run csrc/classic.cu; CPU tensors the plain version."""
+    if not idx_lo.is_cuda:
+        return probe_tags_plain(idx_hi, idx_lo, win_valid, bf_rank, pay)
+    dev = require_windows(idx_hi, idx_lo, win_valid)
+    for name, t in (("bf_rank", bf_rank), ("pay", pay)):
+        kernels.require(t, name, torch.uint32, 2, dev)
+        if t.shape[1] != 2:
+            raise ValueError(f"{name} shape {tuple(t.shape)}")
+    tagv = torch.empty_like(idx_lo)
+    payv = torch.empty_like(idx_lo)
+    rc = kernels.lib().shkk_classic(
+        idx_hi.data_ptr(), idx_lo.data_ptr(), win_valid.data_ptr(),
+        idx_lo.numel(), bf_rank.data_ptr(), pay.data_ptr(), tagv.data_ptr(),
+        payv.data_ptr(), kernels.stream(dev))
+    kernels.check(rc, "classic")
+    kernels.LAUNCHES.add("classic")
+    return tagv, payv
+
+
+def classify_kernel_classic_packed(
+    dix: DeviceIndex,
+    thresh: torch.Tensor,
+    packed: torch.Tensor,  # u8[B, L/4]
+    vmask: torch.Tensor,  # u8[B, L/8]
+    *,
+    meta: StaticMeta,
+    max_winners: int,
+    has_rows: bool,
+):
+    """K1 -> K5 -> K3: planar reads -> (packed i32[B], winners i32[B, W],
+    best_cov i32[B], length i32[B]), bit-exact with shark_tpu's
+    classify_kernel_packed."""
+    idx_hi, idx_lo, win_valid, length = front_end(packed, vmask, meta)
+    tagv, payv = probe_tags(idx_hi, idx_lo, win_valid, dix.bf_rank, dix.pay)
+    return finish_from_tags(
+        tagv, payv, length, thresh,
+        rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta,
+        max_winners=max_winners, L=packed.shape[1] * 4, has_rows=has_rows,
+    )
+
+
+# ---------------------------------------------------------------------------
 # The classifier
 # ---------------------------------------------------------------------------
 
@@ -873,12 +1051,13 @@ def extract_pairs(packed: torch.Tensor, winners: torch.Tensor, cap: int):
 class Classifier:
     """Holds the device-resident index tables and runs the classify step.
 
-    Probe-path selection (`probe`): "hashed" or None (auto) use the hashed
-    bucket table (classify/hashed.py), the main path for gene panels. The
-    other layouts of shark_tpu are not in the port yet: "xl" and "classic"
-    raise, and so does an index whose hashed table cannot be built (where
-    shark_tpu's auto-selection would take xl or classic) — the port never
-    picks another layout silently."""
+    Probe-path selection (`probe`), shark_tpu's rule: None (auto) uses the
+    hashed bucket table (classify/hashed.py) when it builds within its
+    table and stash budgets (gene panels), else the xl layout (16-byte
+    buckets with a spill side table, transcriptome scale), else the classic
+    two-load probe (K5). "hashed" tries hashed, then xl; "xl" forces xl;
+    "classic" forces classic. A forced layout that cannot be built raises
+    ValueError. `self.probe` names the layout taken."""
 
     def __init__(
         self,
@@ -891,26 +1070,22 @@ class Classifier:
     ):
         """`device`: None = the CUDA card (raises without one), or e.g.
         "cpu" for the plain PyTorch versions. `probe_opts`: "threads" (host
-        table-build parallelism) and "cache_dir" (on-disk packed-table
-        cache, classify/table_cache.py)."""
-        from shark_tpu_torch.classify.hashed import (
-            build_hashed_index,
-            hashed_device_index,
-        )
-        from shark_tpu_torch.config import not_ported
+        table-build parallelism), "cache_dir" (on-disk packed-table cache,
+        classify/table_cache.py) and, with probe="xl" only, "lgB" and
+        "side_lgB" (pinned xl table geometries)."""
+        from shark_tpu_torch.classify import hashed
 
-        if probe in ("xl", "classic"):
-            raise not_ported(
-                f"probe={probe!r}",
-                "xl probe" if probe == "xl" else "classic probe",
-            )
-        if probe not in (None, "hashed"):
+        if probe not in (None, "hashed", "xl", "classic"):
             raise ValueError(f"unknown probe {probe!r}")
         opts = dict(probe_opts or {})
         build_threads = opts.pop("threads", None)
+        xl_lgB = opts.pop("lgB", None)
+        xl_side_lgB = opts.pop("side_lgB", None)
         cache_dir = opts.pop("cache_dir", None)
         if opts:
             raise ValueError(f"unknown probe_opts: {sorted(opts)}")
+        if (xl_lgB is not None or xl_side_lgB is not None) and probe != "xl":
+            raise ValueError("lgB/side_lgB probe_opts require probe='xl'")
         self.index = index
         self.max_winners = max_winners
         self.c = c
@@ -919,36 +1094,66 @@ class Classifier:
         # host expands group verdicts (PACK_GRP) through this
         gi = group_info(index)
         self.groups = gi[1] if gi is not None else None
-        built = None
-        if cache_dir:
-            from shark_tpu_torch.classify.table_cache import (
-                load_tables,
-                save_tables_async,
-            )
-
-            cached = load_tables(cache_dir, index, probe)
-            if cached is not None:
-                built = cached[1]
-        if built is None:
-            built = build_hashed_index(index, threads=build_threads)
-            if built is None:
-                raise not_ported(
-                    "this index needs the xl or classic probe layout (its "
-                    "hashed table exceeds the table or stash budget), which",
-                    "xl probe / classic probe",
-                )
+        built = built_xl = None
+        if probe != "classic":
+            geom = dict(lgB=xl_lgB, side_lgB=xl_side_lgB)
+            cached = None
             if cache_dir:
-                save_tables_async(cache_dir, index, probe, "hashed", built)
-        table, stash, hmeta = built
-        rows3, ext_mat = (
-            build_rows3(index)
-            if hmeta.has_rows
-            else (np.zeros((1, 1), np.uint32), None)
-        )
-        self.dix, self._hmeta = hashed_device_index(
-            table, stash, rows3, ext_mat, hmeta, self.device
-        )
-        self.probe = "hashed"
+                from shark_tpu_torch.classify.table_cache import (
+                    load_tables,
+                    save_tables_async,
+                )
+
+                cached = load_tables(cache_dir, index, probe, **geom)
+            if cached is not None:
+                kind, arrays = cached
+                if kind == "hashed":
+                    built = arrays
+                else:
+                    built_xl = arrays
+            else:
+                if probe != "xl":
+                    built = hashed.build_hashed_index(
+                        index, threads=build_threads)
+                if built is None:
+                    built_xl = hashed.build_hashed_xl(
+                        index, threads=build_threads, **geom)
+                if cache_dir and (built is not None or built_xl is not None):
+                    save_tables_async(
+                        cache_dir, index, probe,
+                        "hashed" if built is not None else "xl",
+                        built if built is not None else built_xl, **geom)
+            if built is None and built_xl is None and probe is not None:
+                raise ValueError(
+                    f"{probe} probe table not buildable for this index "
+                    "(table budget / stash overflow); use probe='classic'"
+                )
+        if built is not None or built_xl is not None:
+            if built is not None:
+                table, stash, hmeta = built
+                side = side_stash = None
+                self.probe = "hashed"
+            else:
+                table, side, side_stash, hmeta = built_xl
+                stash = hashed.empty_stash()  # the xl layout has none
+                self.probe = "xl"
+            rows3, ext_mat = (
+                build_rows3(index)
+                if hmeta.has_rows
+                else (np.zeros((1, 1), np.uint32), None)
+            )
+            self.dix, self._hmeta = hashed.hashed_device_index(
+                table, stash, rows3, ext_mat, hmeta, self.device,
+                side=side, side_stash=side_stash,
+            )
+        else:
+            bf_rank, pay, rows3, ext_mat = build_device_index(index)
+            self._has_rows = bool((np.diff(index.offsets) >= 3).any())
+            self.dix = DeviceIndex(
+                *(to_device(a, self.device)
+                  for a in (bf_rank, pay, rows3, ext_mat)))
+            self._hmeta = None
+            self.probe = "classic"
         self._meta = {}
         self._thresh = {}
 
@@ -968,29 +1173,28 @@ class Classifier:
         bases to a multiple of 8 for the planar packing; that changes no
         verdict (window positions, lengths and thresholds are those of the
         unpadded read)."""
-        from shark_tpu_torch.classify.hashed import classify_kernel_hashed
-
         codes = torch.as_tensor(codes).to(self.device)
         B, L = codes.shape
         if L % 8:
             pad = torch.full((B, 8 - L % 8), INVALID, dtype=torch.uint8,
                              device=self.device)
             codes = torch.cat([codes, pad], dim=1)
-        meta, thresh = self._geometry(codes.shape[1])
-        return classify_kernel_hashed(
-            self.dix, thresh, codes, meta=meta, hmeta=self._hmeta,
-            max_winners=self.max_winners,
-        )
+        return self.call_packed(*pack_codes(codes))
 
     def call_packed(self, packed, vmask):
         """packed u8[B, L/4] + validity u8[B, L/8] -> result tuple."""
+        packed = torch.as_tensor(packed).to(self.device, non_blocking=True)
+        vmask = torch.as_tensor(vmask).to(self.device, non_blocking=True)
+        meta, thresh = self._geometry(packed.shape[1] * 4)
+        if self.probe == "classic":
+            return classify_kernel_classic_packed(
+                self.dix, thresh, packed, vmask, meta=meta,
+                max_winners=self.max_winners, has_rows=self._has_rows,
+            )
         from shark_tpu_torch.classify.hashed import (
             classify_kernel_hashed_packed,
         )
 
-        packed = torch.as_tensor(packed).to(self.device, non_blocking=True)
-        vmask = torch.as_tensor(vmask).to(self.device, non_blocking=True)
-        meta, thresh = self._geometry(packed.shape[1] * 4)
         return classify_kernel_hashed_packed(
             self.dix, thresh, packed, vmask, meta=meta, hmeta=self._hmeta,
             max_winners=self.max_winners,

@@ -4,8 +4,7 @@ The index itself serializes via --save-index (SharkIndex.save), but the
 device probe tables are built from it at classifier construction. This
 module caches the packed tables next to the index so a warm start skips
 the pack. The key and format are shark_tpu's, so either package loads the
-other's hashed tables; an xl entry (a layout not in the port yet) raises
-rather than being rebuilt into another layout.
+other's hashed and xl tables.
 
 Staleness is the failure mode this design is built against (a stale table
 would silently corrupt the byte-exact output invariant):
@@ -182,13 +181,6 @@ def load_tables(
         if rec["key"] != _cache_key(index, request_probe, lgB, side_lgB):
             return None
         kind = rec["kind"]
-        if kind == "xl":
-            # a valid entry for this index, written by shark_tpu, whose
-            # layout the port cannot run: say so rather than rebuild
-            # silently into another layout
-            from shark_tpu_torch.config import not_ported
-
-            raise not_ported("a cached xl probe table", "xl probe")
         names = _ARRAYS[kind]
         arrays = []
         for name in names:

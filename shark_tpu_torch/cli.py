@@ -10,8 +10,7 @@ association mode; -t threads; -v verbose. Associations go to stdout as
 Device extras: --batch-size, --max-read-len, --backend, --save-index/
 --load-index, --ssv, --resume and --stats-json. The flags of paths not in
 the PyTorch port yet (--devices > 1, --sharded-bf, --num-hosts > 1,
---backend native, --profile-dir, --probe xl|classic) are accepted by the
-parser and then refused with a "not in the port yet" error.
+--backend native, --profile-dir) are accepted by the parser and then refused with a "not in the port yet" error.
 """
 
 from __future__ import annotations
@@ -81,9 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the native C++ host I/O engine")
     p.add_argument("--probe", default="auto",
                    choices=("auto", "hashed", "xl", "classic"),
-                   help="probe-path selection: auto (default) and hashed "
-                        "use the one-gather hashed table; xl and classic "
-                        "are not ported")
+                   help="probe-path selection: auto (default) takes the "
+                        "hashed table when it fits its budget, else xl, "
+                        "else classic; xl and classic force a layout")
     p.add_argument("--profile-dir", default="",
                    help="profiler trace directory (not ported)")
     p.add_argument("--compile-cache", default="~/.cache/shark_tpu/xla",

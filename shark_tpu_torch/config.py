@@ -8,8 +8,7 @@ k in [1, 31]; c in [0, 1]; bf size given in "GB" units where 1 unit equals
 The fields are those of shark_tpu's SharkConfig, so a config can be built
 from either package's CLI. Options whose code path is not in the PyTorch
 port yet are rejected by validate() with NotImplementedError, never
-ignored: the multi-device modes, --backend native and --profile-dir, and
-the xl/classic probe layouts.
+ignored: the multi-device modes, --backend native and --profile-dir.
 """
 
 from __future__ import annotations
@@ -62,9 +61,9 @@ class SharkConfig:
     ssv_path: str = ""  # write ssv here instead of stdout (native path)
     use_native: bool = True  # use the C++ host I/O engine when available
     profile_dir: str = ""  # not ported
-    # Probe-path selection: "auto" and "hashed" use the hashed one-gather
-    # bucket table; an index that cannot build it (where shark_tpu would
-    # fall back to xl or classic) raises, as do "xl" and "classic".
+    # Probe-path selection: "auto" takes the hashed bucket table when it
+    # builds, else the xl layout, else classic (shark_tpu's rule); "xl"
+    # and "classic" force a layout.
     probe: str = "auto"
     # Batches per device->host verdict fetch (1 = per-batch fetches).
     fetch_group: int = 1
@@ -112,11 +111,6 @@ class SharkConfig:
             raise ValueError("backend must be '' (the CUDA card) or 'cpu'")
         if self.profile_dir:
             raise not_ported("--profile-dir", "--profile-dir")
-        if self.probe in ("xl", "classic"):
-            raise not_ported(
-                f"--probe {self.probe}",
-                "xl probe" if self.probe == "xl" else "classic probe",
-            )
         if self.sharded_bf:
             raise not_ported("--sharded-bf", "sharded Bloom filter")
         if self.devices > 1:

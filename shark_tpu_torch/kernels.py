@@ -1,6 +1,6 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
-The four device kernels of the main path are CUDA C++ for sm_90a with a
+The device kernels of the classify paths are CUDA C++ for sm_90a with a
 plain C interface. They are compiled with nvcc into one shared library,
 build/shark_tpu_torch/libshark_kernels.so at the repository root, at first
 use and again whenever a source is newer than the library, and loaded with
@@ -36,10 +36,11 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-# The kernels of the main path, one source each. The finish takes two
-# launches of its source (a batch-wide pass, then one block per read) and
-# counts as one kernel.
-KERNELS = ("front", "probe", "finish", "pairs")
+# The kernels of the classify paths, one source each: the front end, the
+# three probes (hashed, xl, classic), the finish and the pair stream. The
+# finish takes two launches of its source (a batch-wide pass, then one
+# block per read) and counts as one kernel.
+KERNELS = ("front", "probe", "finish", "pairs", "probe_xl", "classic")
 
 _lib = None
 _lock = threading.Lock()
@@ -184,6 +185,12 @@ _SIGNATURES = {
     ],
     # packed, winners, B, W, out, out_len, offsets (B + 1), stream
     "shkk_pairs": [_VP, _VP, _I, _I, _VP, _L, _VP, _VP],
+    # idx_hi, idx_lo, win_valid, n, table, lgB, side, side_lgB, has_side,
+    # side_stash, n_side_stash, tagv, payv, stream
+    "shkk_probe_xl": [_VP, _VP, _VP, _L, _VP, _I, _VP, _I, _I, _VP, _I, _VP,
+                      _VP, _VP],
+    # idx_hi, idx_lo, win_valid, n, bf_rank, pay, tagv, payv, stream
+    "shkk_classic": [_VP, _VP, _VP, _L, _VP, _VP, _VP, _VP, _VP],
 }
 
 

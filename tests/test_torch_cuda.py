@@ -2,11 +2,12 @@
 card. Marked `cuda`; without a CUDA device every test skips.
 
 chip_smoke.py holds each kernel against its plain version at the main
-path's shapes. These tests cover the modes that path does not reach: the
+paths' shapes. These tests cover the modes those paths do not reach: the
 entry8 table, the extension-row geometry, the finish's global-scratch key
 buffer for wide geometries, every group tier, k and Bloom-size variants
-of the front end, reads shorter than k, and whole pipelines on random
-workloads. Inputs are made with numpy from seeds; results must be equal,
+of the front end and of the classic and xl probes, the xl geometries
+with and without a side table, reads shorter than k, and whole
+pipelines on random workloads. Inputs are made with numpy from seeds; results must be equal,
 bit for bit.
 
 On a machine with a card (and without jax, which tests/conftest.py
@@ -245,3 +246,104 @@ def test_pipeline_cuda_matches_cpu(cuda, tmp_path, seed):
     assert want[0]
     for tag, got in outs.items():
         assert got == want, tag
+
+
+# ---------------------------------------------------------------------------
+# K5 (classic) and K6 (xl) against their plain versions
+# ---------------------------------------------------------------------------
+
+XL_GEOMETRIES = {"natural": {}, "spill": {"lgB": 15}, "no_side": {"lgB": 20}}
+_INDEXES = {}
+
+
+def txome_like_index(k, size_bits):
+    """A small transcriptome in miniature: 8 genes sharing a 300 bp core
+    (degree-8 rows) and 56 single genes, 1200 bp each. Built once per
+    (k, size_bits) and kept, since the largest Bloom form takes GBs."""
+    key = (k, size_bits)
+    if key not in _INDEXES:
+        _INDEXES.clear()
+        rng = np.random.default_rng(k)
+        genes = BASES[rng.integers(0, 4, size=(64, 1200))]
+        genes[:8, 450:750] = BASES[rng.integers(0, 4, size=300)]
+        records = [(f"G{i}", g.tobytes()) for i, g in enumerate(genes)]
+        _INDEXES[key] = genes, build_index(records, k, size_bits)
+    return _INDEXES[key]
+
+
+def windows(cuda, genes, B, k, size_bits, seed):
+    """Front-end windows of B reads (100 bp at L = 104, 2% errors with Ns,
+    one in ten random) on the card."""
+    from shark_tpu_torch.ops.kmers import BYTE_TO_CODE
+
+    rng = np.random.default_rng(seed)
+    gidx = rng.integers(0, genes.shape[0], size=B)
+    starts = rng.integers(0, genes.shape[1] - 100, size=B)
+    reads = genes[gidx[:, None], starts[:, None] + np.arange(100)]
+    reads[rng.random(B) < 0.1] = BASES[rng.integers(0, 4, size=100)]
+    err = rng.random(reads.shape) < 0.02
+    reads[err] = np.frombuffer(b"ACGTN", np.uint8)[
+        rng.integers(0, 5, size=int(err.sum()))]
+    codes = np.full((B, 104), 4, np.uint8)
+    codes[:, :100] = BYTE_TO_CODE[reads]
+    packed, vmask = step.pack_codes(torch.from_numpy(codes).to(cuda))
+    hi, lo, valid, _ = step.front_end(packed, vmask, _Meta(k, size_bits))
+    return hi, lo, valid
+
+
+def xl_tables(cuda, index, **geometry):
+    table, side, side_stash, hmeta = hashed.build_hashed_xl(index, **geometry)
+    return hashed.hashed_device_index(
+        table, hashed.empty_stash(), *step.build_rows3(index), hmeta, cuda,
+        side=side, side_stash=side_stash)
+
+
+def check_xl(dix, hmeta, wins):
+    args = (*wins, dix.table, dix.side, dix.side_stash, hmeta)
+    equal(hashed.probe_xl(*args), hashed.probe_xl_plain(*args))
+
+
+@pytest.mark.parametrize("k", [11, 17])
+@pytest.mark.parametrize("geometry", list(XL_GEOMETRIES))
+def test_probe_xl_kernel_geometries(cuda, geometry, k):
+    size_bits = 1 << 26
+    genes, index = txome_like_index(k, size_bits)
+    dix, hmeta = xl_tables(cuda, index, **XL_GEOMETRIES[geometry])
+    if geometry != "natural":
+        assert hmeta.has_side == (geometry == "spill")
+    for B in (8192, 65536):
+        check_xl(dix, hmeta, windows(cuda, genes, B, k, size_bits, B + k))
+
+
+@pytest.mark.parametrize("size_bits", [1 << 30, 1 << 33, 3 << 33])
+@pytest.mark.parametrize("k", [11, 17])
+def test_probe_kernels_bloom_forms(cuda, k, size_bits):
+    """The three forms of _mod_size (a power of two up to 2^32, a larger
+    power of two, a multiple of 2^32): classic and xl (natural geometry)
+    at B = 8192 and 65536."""
+    genes, index = txome_like_index(k, size_bits)
+    bf_rank, pay, _, _ = step.build_device_index(index)
+    bf_rank = torch.from_numpy(bf_rank).to(cuda)
+    pay = torch.from_numpy(pay).to(cuda)
+    dix, hmeta = xl_tables(cuda, index)
+    for B in (8192, 65536):
+        wins = windows(cuda, genes, B, k, size_bits, B * k)
+        equal(step.probe_tags(*wins, bf_rank, pay),
+              step.probe_tags_plain(*wins, bf_rank, pay))
+        check_xl(dix, hmeta, wins)
+
+
+@pytest.mark.parametrize("probe", ["xl", "classic"])
+def test_classifier_probe_layouts(cuda, probe):
+    """K1 -> K6 or K5 -> K3 through the Classifier: the card's verdicts
+    equal the CPU's."""
+    genes, index = txome_like_index(17, 1 << 26)
+    gpu = Classifier(index, max_winners=8, device=cuda, probe=probe)
+    cpu = Classifier(index, max_winners=8, device="cpu", probe=probe)
+    assert gpu.probe == cpu.probe == probe
+    rng = np.random.default_rng(8)
+    reads = [g[s:s + 100].tobytes() for g, s in zip(
+        genes[rng.integers(0, 64, size=700)],
+        rng.integers(0, 1100, size=700))]
+    codes = encode(reads, L=104)
+    equal(gpu(codes), cpu(codes))

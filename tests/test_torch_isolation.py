@@ -5,7 +5,8 @@
 - its C++ host engine is shark_tpu's, byte for byte;
 - with no CUDA device and no explicit request for the CPU, its entry
   points raise instead of carrying on on the CPU;
-- every option whose path is not ported raises "not in the port yet".
+- every option whose path is not ported raises "not in the port yet";
+- probe options are refused as shark_tpu refuses them.
 """
 
 import ast
@@ -42,7 +43,7 @@ def test_import_leaves_out_jax_and_shark_tpu():
     code = (
         "import sys, shark_tpu_torch, shark_tpu_torch.cli, "
         "shark_tpu_torch.convert, shark_tpu_torch.kernels, "
-        "shark_tpu_torch.classify.table_cache; "
+        "shark_tpu_torch.classify.hashed, shark_tpu_torch.classify.table_cache; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'shark_tpu')); print(bad); sys.exit(bool(bad))"
     )
@@ -107,9 +108,21 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
     """A CPU tensor runs the plain version and counts no launch."""
     from shark_tpu_torch import kernels
 
+    from shark_tpu_torch.classify import hashed
+
     kernels.LAUNCHES.reset()
     step.extract_pairs(torch.zeros(4, dtype=torch.int32),
                        torch.zeros((4, 2), dtype=torch.int32), 8)
+    idx = torch.zeros((2, 3), dtype=torch.uint32)
+    valid = torch.ones((2, 3), dtype=torch.bool)
+    rows = torch.zeros((4, 2), dtype=torch.uint32)
+    step.probe_tags(idx, idx, valid, rows, rows)
+    xl = hashed.HashedMeta(lgB=6, has_rows=False, entry16=True, slots=4,
+                           xl=True, side_lgB=6, has_side=True)
+    side = torch.zeros((64, 2, 8), dtype=torch.uint32)
+    stash = torch.from_numpy(hashed.empty_stash())
+    hashed.probe_xl(idx, idx, valid, torch.zeros((64, 4), dtype=torch.uint32),
+                    side, stash, xl)
     assert kernels.LAUNCHES.snapshot() == {n: 0 for n in kernels.KERNELS}
 
 
@@ -121,10 +134,8 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
         ["--num-hosts", "2", "--coordinator", "localhost:1234"],
         ["--backend", "native"],
         ["--profile-dir", "trace"],
-        ["--probe", "xl"],
-        ["--probe", "classic"],
     ],
-    ids=lambda f: f[0].lstrip("-") + ("-" + f[1] if f[0] == "--probe" else ""),
+    ids=lambda f: f[0].lstrip("-"),
 )
 def test_deferred_flags_raise_not_ported(flags, capsys, tmp_path):
     fa = tmp_path / "g.fa"
@@ -136,19 +147,14 @@ def test_deferred_flags_raise_not_ported(flags, capsys, tmp_path):
     assert NOT_PORTED in capsys.readouterr().err
 
 
-def test_probe_layouts_not_ported_raise_in_classifier():
+@pytest.mark.parametrize("probe", [None, "hashed", "classic"])
+@pytest.mark.parametrize("opt", ["lgB", "side_lgB"])
+def test_xl_geometry_without_probe_xl_raises(probe, opt):
+    """Pinned xl geometries are taken only with probe="xl" (shark_tpu
+    step.py:1296-1297); the auto fallbacks: tests/test_torch_xl.py."""
     index = build_index([("g", b"ACGTACGTTGCAACGTTGCA" * 4)], 11, 1 << 12)
-    for probe in ("xl", "classic"):
-        with pytest.raises(NotImplementedError, match=NOT_PORTED):
-            step.Classifier(index, device="cpu", probe=probe)
-
-
-def test_index_without_a_hashed_table_raises(monkeypatch):
-    """Where shark_tpu's auto-selection would fall back to xl or classic,
-    the port refuses instead of substituting a layout."""
-    from shark_tpu_torch.classify import hashed
-
-    monkeypatch.setattr(hashed, "build_hashed_index", lambda *a, **k: None)
-    index = build_index([("g", b"ACGTACGTTGCAACGTTGCA" * 4)], 11, 1 << 12)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
-        step.Classifier(index, device="cpu")
+    with pytest.raises(ValueError, match="require probe='xl'"):
+        step.Classifier(index, device="cpu", probe=probe,
+                        probe_opts={opt: 8})
+    assert step.Classifier(index, device="cpu", probe="xl",
+                           probe_opts={opt: 8}).probe == "xl"

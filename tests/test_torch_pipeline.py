@@ -6,7 +6,10 @@ bytes shark_tpu's writes — ssv and FASTQ — on the random workloads of
 tests/test_e2e_fuzz.py (paired and single-end, quality masking, gzip),
 through the native engine and through the Python path, with the
 auto-length pre-scan. One index per workload, built once and given to
-both packages' classifiers."""
+both packages' classifiers. The CLI forced to the xl and classic probe
+layouts writes shark_tpu's CLI bytes too."""
+
+import json
 
 import numpy as np
 import pytest
@@ -175,3 +178,72 @@ def test_tie_heavy_native_pipeline_matches_shark_tpu(tmp_path):
                 tmp_path / f"jax{ext}").read_bytes(), f"{tag}{ext}"
     ssv = (tmp_path / "jax.ssv").read_text().splitlines()
     assert len(ssv) > len({line.split()[0] for line in ssv})  # ties emitted
+
+
+def _family_fastx(tmp_path, rng, paired):
+    """Families sharing a core (degree >= 3 rows) plus single genes, and
+    90 bp reads with Ns; mate 2 of a pair is the reverse complement of
+    the sequence 120 bp downstream."""
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+    genes = []
+    for fam in range(4):
+        core = BASES[rng.integers(0, 4, size=120)]
+        for m in range(4):
+            genes.append(np.concatenate([BASES[rng.integers(0, 4, size=150)],
+                                         core,
+                                         BASES[rng.integers(0, 4, size=150)]]))
+    genes += [BASES[rng.integers(0, 4, size=420)] for _ in range(10)]
+    fa = tmp_path / "genes.fa"
+    fa.write_bytes(b"".join(b">g%02d\n%s\n" % (i, g.tobytes())
+                            for i, g in enumerate(genes)))
+    mates = ([], [])
+    for i in range(300):
+        g = genes[int(rng.integers(0, len(genes)))]
+        s = int(rng.integers(0, len(g) - 210))
+        r1 = g[s:s + 90].copy()
+        r1[rng.random(90) < 0.02] = ord("N")
+        mates[0].append(b"@r%04d\n%s\n+\n%s\n" % (i, r1.tobytes(), b"I" * 90))
+        r2 = g[s + 120:s + 210].tobytes().translate(comp)[::-1]
+        mates[1].append(b"@r%04d\n%s\n+\n%s\n" % (i, r2, b"I" * 90))
+    paths = []
+    for m in range(2 if paired else 1):
+        p = tmp_path / f"reads_{m + 1}.fq"
+        p.write_bytes(b"".join(mates[m]))
+        paths.append(str(p))
+    return str(fa), paths
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+@pytest.mark.parametrize("probe", ["xl", "classic"])
+def test_cli_probe_layouts_match_shark_tpu(tmp_path, monkeypatch, probe,
+                                           paired):
+    """`--backend cpu --probe xl|classic` through the port's CLI entry
+    point (cli.main, what python -m shark_tpu_torch runs) writes the ssv
+    and FASTQ bytes of shark_tpu's CLI with the same flags. Both packages'
+    -b unit is shrunk to 2^20 bits, so -b 1 builds a small filter and a
+    small classic (word, rank) table."""
+    from shark_tpu import cli as jcli
+    from shark_tpu import config as jconfig
+    from shark_tpu_torch import cli as tcli
+    from shark_tpu_torch import config as tconfig
+
+    monkeypatch.setattr(jconfig, "BF_UNIT_BITS", 1 << 20)
+    monkeypatch.setattr(tconfig, "BF_UNIT_BITS", 1 << 20)
+    fa, fq = _family_fastx(tmp_path, np.random.default_rng(41 + paired),
+                           paired)
+    outs = {}
+    for tag, cli in (("jax", jcli), ("torch", tcli)):
+        argv = ["-r", fa, "-1", fq[0], "-o", str(tmp_path / f"{tag}.1.fq"),
+                "--ssv", str(tmp_path / f"{tag}.ssv"), "-k", "15", "-c",
+                "0.5", "-b", "1", "--probe", probe, "--backend", "cpu",
+                "--batch-size", "64", "--compile-cache", "",
+                "--stats-json", str(tmp_path / f"{tag}.json")]
+        if paired:
+            argv += ["-2", fq[1], "-p", str(tmp_path / f"{tag}.2.fq")]
+        assert cli.main(argv) == 0
+        stats = json.loads((tmp_path / f"{tag}.json").read_text())
+        assert stats["probe"] == probe
+        outs[tag] = _outputs(tmp_path, tag, paired)
+    assert outs["jax"][0], "workload emitted no association"
+    for name, a, b in zip(("ssv", "fq1", "fq2"), outs["jax"], outs["torch"]):
+        assert a == b, f"{name} differs from shark_tpu"

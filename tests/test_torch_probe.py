@@ -144,7 +144,7 @@ def test_hashed_probe_matches_classic(workload, allow16):
 
 def test_probe_table_cache_is_shared_with_shark_tpu(workload, tmp_path):
     """A hashed table cached by shark_tpu is loaded by the port (same key,
-    same arrays); an xl entry, a layout the port cannot run, is refused."""
+    same arrays). The xl kind: tests/test_torch_xl.py."""
     from shark_tpu.classify import table_cache as jcache
     from shark_tpu_torch.classify import table_cache as tcache
 
@@ -159,9 +159,3 @@ def test_probe_table_cache_is_shared_with_shark_tpu(workload, tmp_path):
                            probe_opts={"cache_dir": d})(codes)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-
-    dxl = str(tmp_path / "xl.tables")
-    jstep.Classifier(jindex, probe="xl", probe_opts={"cache_dir": dxl})
-    jcache.join_pending()
-    with pytest.raises(NotImplementedError, match="not in the port yet"):
-        tcache.load_tables(dxl, tindex, "xl")
