@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one card:
 Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: nvcc for the six CUDA kernels (csrc/*.cu, one nvcc each, all
+2. build: nvcc for the nine CUDA kernels (csrc/*.cu, one nvcc each, all
    started together) and g++ for the C++ host engine, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main paths' shapes (B = 8192 and 65536 reads,
@@ -20,7 +20,14 @@ Phases, each printing its lines; any failure exits non-zero:
    panel's index; the xl and classic probes on a transcriptome index at
    bench/transcriptome_bench.py's widths (50,000 genes x 1500 bp, every
    80th gene starting a family of 8 that shares a 300 bp core), which
-   takes the xl layout with a side table;
+   takes the xl layout with a side table; and the sharded Bloom filter's
+   routing kernels (route, owner probe, return) on that index split into
+   8 shards on the one card, at the four shapes (B split 8 ways), at one
+   shard, with the wide (64-bit word) router, with a routing cap so small
+   that every source overflows, and the router alone at a > 2^36-bit
+   filter on synthetic addresses (its owners against a numpy uint64
+   oracle); the 8-shard classifier's verdicts on a 65536-read batch must
+   equal the classic classifier's;
 4. end to end through the CLI entry point (shark_tpu_torch.cli.main, what
    `python -m shark_tpu_torch` runs) with the default flags
    -k 17 -c 0.6 -b 1, on workloads made with numpy from a seed at
@@ -29,13 +36,17 @@ Phases, each printing its lines; any failure exits non-zero:
    300 bp core) with 100k reads, (c) the panel with 50k read pairs, (d)
    the transcriptome with 500k reads and --save-index (auto selection
    takes xl), (e) --probe classic --load-index on that index and the
-   first 100k reads of (d). Runs (a)-(d) must write the bytes of a
-   --backend cpu run of the port on their first 20k reads ((d)'s through
-   --load-index, so through the xl probe-table cache), and 2000 reads of
-   each must agree with the port's oracle; (e) must write the prefix of
-   (d)'s bytes. The launch counters are zeroed before each path and read
-   after it: (a)-(c) launch the hashed path's kernels, (d) the xl path's,
-   (e) the classic path's.
+   first 100k reads of (d), (f) --sharded-bf --load-index (one shard, the
+   CLI on one card) on the same reads, (g) run_pipeline through the
+   native engine with the index split into 8 shards on the card and a
+   routing cap small enough that reprobe must fire, on the same reads.
+   Runs (a)-(d) must write the bytes of a --backend cpu run of the port
+   on their first 20k reads ((d)'s through --load-index, so through the
+   xl probe-table cache), and 2000 reads of each must agree with the
+   port's oracle; (e), (f) and (g) must write the prefix of (d)'s bytes.
+   The launch counters are zeroed before each run and read after it:
+   (a)-(c) launch the hashed path's kernels, (d) the xl path's, (e) the
+   classic path's, (f) and (g) the sharded path's.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
@@ -90,13 +101,25 @@ KERNEL_INFO = {
                  "shark_tpu/classify/hashed.py:568"),
     "classic": ("probe_tags", "shark_tpu_torch/csrc/classic.cu",
                 "shark_tpu/classify/step.py:687"),
+    "shard_route": ("shard_route", "shark_tpu_torch/csrc/route.cu",
+                    "shark_tpu/parallel/sharded_bf.py:138"),
+    "shard_probe": ("shard_probe", "shark_tpu_torch/csrc/route.cu",
+                    "shark_tpu/parallel/sharded_bf.py:245"),
+    "shard_return": ("shard_return", "shark_tpu_torch/csrc/route.cu",
+                     "shark_tpu/parallel/sharded_bf.py:256"),
 }
-# the kernels each end-to-end path must launch
+# the kernels each end-to-end path must launch; a path launches no probe
+# or routing kernel of another path
 PATH_KERNELS = {
     "hashed": ("front", "probe", "finish", "pairs"),
     "xl": ("front", "probe_xl", "finish"),
     "classic": ("front", "classic", "finish"),
+    "sharded": ("front", "shard_route", "shard_probe", "shard_return",
+                "finish"),
 }
+PATH_ONLY = ("probe", "probe_xl", "classic", "shard_route", "shard_probe",
+             "shard_return")
+SHARDS = 8
 
 
 class SmokeFailure(Exception):
@@ -507,6 +530,201 @@ def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer):
     return record
 
 
+def _transposed(buf):
+    """The exchange of shards that share the card: [src, dst] -> [dst,
+    src]."""
+    return buf.view(torch.int32).transpose(0, 1).contiguous().view(
+        torch.uint32)
+
+
+def route_rows(windows, dix, n, wps, wide, cap, timer):
+    """K7a, K7b and K7c on [n, b, Ls] windows against the shard tables
+    `dix`, each against its plain version (exact), timed beside its plain
+    version and one PyTorch library call, with its bound. Returns (rows,
+    routing counts)."""
+    from shark_tpu_torch.classify import step
+    from shark_tpu_torch.parallel import sharded_bf as sb
+
+    hi, lo, valid = windows
+    S, b, Ls = lo.shape
+    dev = lo.device
+    nw = lo.numel()
+    route = dict(n=n, wps=wps, wide=wide, cap=cap)
+    rows = {}
+
+    # K7a ------------------------------------------------------------------
+    k7a = sb.shard_route(hi, lo, valid, **route)
+    ea = same("shard_route", k7a, sb.shard_route_plain(hi, lo, valid, **route))
+    send, slot, owner, ovf = k7a
+    Pn = b * Ls
+    pos = torch.arange(Pn, device=dev, dtype=torch.int64)
+    o64 = owner.reshape(S, Pn).to(torch.int64)
+    keys = torch.where(o64 >= 0, o64 * Pn + pos, n * Pn)
+    rows["shard_route"] = dict(
+        err=ea,
+        ms=timer(lambda: sb.shard_route(hi, lo, valid, **route)),
+        plain_ms=timer(lambda: sb.shard_route_plain(hi, lo, valid, **route)),
+        library_ms=timer(lambda: torch.sort(keys, dim=1)),
+        bound=bound(nw * 9 + send.numel() * 4 + nw * 8 + S * 4,
+                    nw * (30 + (n if wide else 0))),
+    )
+
+    # K7b ------------------------------------------------------------------
+    recv = _transposed(send)
+    k7b = sb.shard_probe(recv, dix.bf_rank, dix.pay)
+    eb = same("shard_probe", [k7b],
+              [sb.shard_probe_plain(recv, dix.bf_rank, dix.pay)])
+    q = recv.to(torch.int64)
+    routed = q[..., 0] < wps
+    h = torch.arange(recv.shape[0], device=dev).view(-1, 1, 1).expand_as(
+        routed)
+    widx = (h * wps + q[..., 0])[routed]
+    wr = dix.bf_rank.view(torch.int32).reshape(-1, 2)[widx].to(
+        torch.int64) & 0xFFFFFFFF
+    bit = q[..., 1][routed] & 31
+    hit = ((wr[:, 0] >> bit) & 1) == 1
+    low = wr[:, 0] & ((torch.ones_like(bit) << bit) - 1)
+    rows_max = dix.pay.shape[1]
+    ridx = (h[routed] * rows_max + wr[:, 1] + step._popcount32(low))[hit]
+    bfr = dix.bf_rank.view(torch.int32).reshape(-1, 2)
+    payr = dix.pay.view(torch.int32).reshape(-1, 2)
+    n_slots = recv.numel() // 2
+    rows["shard_probe"] = dict(
+        err=eb,
+        ms=timer(lambda: sb.shard_probe(recv, dix.bf_rank, dix.pay)),
+        plain_ms=timer(lambda: sb.shard_probe_plain(recv, dix.bf_rank,
+                                                    dix.pay)),
+        library_ms=timer(lambda: (bfr[widx], payr[ridx])),
+        bound=bound(n_slots * 16 + int(torch.unique(widx).numel()) * 8
+                    + int(torch.unique(ridx).numel()) * 8,
+                    int(routed.sum()) * 12),
+    )
+
+    # K7c ------------------------------------------------------------------
+    back = _transposed(k7b)
+    k7c = sb.shard_return(back, owner, slot)
+    ec = same("shard_return", k7c, sb.shard_return_plain(back, owner, slot))
+    ok = slot >= 0
+    src = torch.arange(S, device=dev).view(S, 1, 1).expand_as(slot)
+    flat = ((src * n + owner.to(torch.int64)) * cap + slot)[ok]
+    backr = back.view(torch.int32).reshape(-1, 2)
+    n_routed = int(ok.sum())
+    rows["shard_return"] = dict(
+        err=ec,
+        ms=timer(lambda: sb.shard_return(back, owner, slot)),
+        plain_ms=timer(lambda: sb.shard_return_plain(back, owner, slot)),
+        library_ms=timer(lambda: backr[flat]),
+        bound=bound(nw * 8 + n_routed * 8 + nw * 8, nw * 6),
+    )
+    stats = dict(windows=nw, routed=n_routed, cap=cap,
+                 overflow=[int(x) for x in ovf.cpu()],
+                 slots=n_slots, hits=int(hit.sum()))
+    return rows, stats
+
+
+def check_sharded_kernels(tindex, cclf, genes, shapes, record_shape, timer):
+    """Phase 3 on the transcriptome index split into SHARDS shards on the
+    card: K7a-c at every shape, at one shard and with the wide router at
+    the record shape, with overflow, the router alone at a > 2^36-bit
+    filter, and the classifier's verdicts against cclf's. Returns the
+    K7 record at record_shape."""
+    from shark_tpu_torch.classify import step
+    from shark_tpu_torch.parallel import sharded_bf as sb
+
+    dev = cclf.device
+    t0 = time.perf_counter()
+    sclf = sb.ShardedBFClassifier(tindex, max_winners=16, c=C,
+                                  devices=[dev] * SHARDS)
+    dix = sclf.dix[dev]
+    say(f"sharded: {SHARDS} shards on one card, {sclf.wps} words per shard, "
+        f"pay rows per shard {dix.pay.shape[1]}, tables "
+        f"{(dix.bf_rank.numel() + dix.pay.numel()) * 4 / 1e9:.2f} GB, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2028)
+    record = {}
+
+    def windows_of(B, L, n):
+        meta = step.StaticMeta.for_index(tindex, L, allow_wide=True)
+        codes = torch.from_numpy(
+            codes_for_shape(rng, genes, B, L, single=panel_reads)).to(dev)
+        hi, lo, valid, _ = step.front_end(*step.pack_codes(codes), meta)
+        shp = (n, B // n, hi.shape[1])
+        return codes, (hi.view(shp), lo.view(shp), valid.view(shp))
+
+    def run(tag, B, L, n, tables, wide, cap):
+        codes, wins = windows_of(B, L, n)
+        rows, st = route_rows(wins, tables, n, tables.bf_rank.shape[1],
+                              wide, cap, timer)
+        say_rows(rows, B, L)
+        say(f"kernel batch B={B} L={L} ({tag}): {json.dumps(st)}")
+        return codes, rows, st
+
+    for B, L in shapes:
+        _, rows, st = run(f"{SHARDS} shards", B, L, SHARDS, dix, False,
+                          sclf._probe_cap(B // SHARDS, L))
+        need(sum(st["overflow"]) == 0, f"sharded B={B} L={L}: overflow")
+        if (B, L) == record_shape:
+            record = rows
+    B, L = record_shape
+    # the wide (64-bit word) router on the same tables
+    run(f"{SHARDS} shards, wide", B, L, SHARDS, dix, True,
+        sclf._probe_cap(B // SHARDS, L))
+    # a cap so small that every source overflows: slot order and counts
+    sclf.slack = 0.05
+    cap = sclf._probe_cap(B // SHARDS, L)
+    sclf.slack = None
+    _, _, st = run(f"{SHARDS} shards, slack 0.05", B, L, SHARDS, dix, False,
+                   cap)
+    need(all(o > 0 for o in st["overflow"]), "slack 0.05: no overflow")
+
+    # the 8-shard classifier's verdicts equal the classic classifier's
+    codes, _ = windows_of(B, L, SHARDS)
+    got = sclf(codes)
+    need(int(got[4].sum()) == 0, "sharded classifier: routing overflow")
+    same("sharded classifier vs classic", got[:4], cclf(codes))
+    say(f"sharded classifier: verdicts of {B} reads equal the classic "
+        "classifier's")
+    cap_big = sclf._probe_cap(B // SHARDS, L)
+    del sclf, dix
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one shard: the CLI's --sharded-bf on one card
+    s1 = sb.ShardedBFClassifier(tindex, max_winners=16, c=C, devices=[dev])
+    run("1 shard", B, L, 1, s1.dix[dev], False, s1._probe_cap(B, L))
+    del s1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the router alone at a > 2^36-bit filter on synthetic addresses
+    n = SHARDS
+    size_bits = (1 << 37) + (5 << 33)
+    wps = size_bits // 32 // n
+    Ls = L - (K - 1)
+    arng = np.random.default_rng(11)
+    addr = (arng.integers(0, 1 << 62, size=B * Ls, dtype=np.int64)
+            .astype(np.uint64) % np.uint64(size_bits))
+    edges = [(s * wps + d) * 32 + 7 for s in range(1, n) for d in (-1, 0, 1)]
+    addr[:len(edges)] = edges
+    shp = (n, B // n, Ls)
+    hi = torch.from_numpy((addr >> np.uint64(32)).astype(np.uint32)).to(dev)
+    lo = torch.from_numpy((addr & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    valid = torch.ones(shp, dtype=torch.bool, device=dev)
+    route = dict(n=n, wps=wps, wide=True, cap=cap_big)
+    wins = (hi.view(shp), lo.to(dev).view(shp), valid)
+    k7a = sb.shard_route(*wins, **route)
+    same("shard_route (> 2^36 bits)", k7a, sb.shard_route_plain(*wins,
+                                                                **route))
+    want = ((addr >> np.uint64(5)) // np.uint64(wps)).astype(np.int32)
+    need(np.array_equal(k7a[2].cpu().numpy().reshape(-1), want),
+         "shard_route (> 2^36 bits): owners differ from the uint64 oracle")
+    need(int(k7a[3].sum()) == 0, "shard_route (> 2^36 bits): overflow")
+    say(f"kernel shard_route at {size_bits} bits ({n} shards of {wps} "
+        f"words, {len(edges)} boundary words): exact, owners equal the "
+        "uint64 oracle")
+    return record
+
+
 # ---------------------------------------------------------------------------
 # end to end
 # ---------------------------------------------------------------------------
@@ -651,9 +869,11 @@ def e2e(work, name, genes, prefix, reads1, reads2=None):
 def e2e_txome(d, fa, reads, launches):
     """(d) the transcriptome through the CLI's defaults (auto selection:
     xl) with --save-index, held against a --backend cpu --load-index run
-    and the oracle; (e) --probe classic --load-index on its first
-    N_CLASSIC_READS reads, held against (d)'s bytes. Each GPU run's
-    launches go to launches["xl"] / launches["classic"]."""
+    and the oracle; (e) --probe classic --load-index, (f) --sharded-bf
+    --load-index and (g) run_pipeline with SHARDS shards on the card and an
+    overflowing routing cap, each on the first N_CLASSIC_READS reads and
+    held against (d)'s bytes. Each GPU run's launches go to
+    launches[run] = (path, counts)."""
     from shark_tpu_torch import kernels
     from shark_tpu_torch.classify import table_cache
     from shark_tpu_torch.index.structure import SharkIndex
@@ -668,7 +888,7 @@ def e2e_txome(d, fa, reads, launches):
     t0 = time.perf_counter()
     stats = run_tag(d, fa, files, "all", "all_gpu", ["--save-index", idx])
     stats["wall_s"] = time.perf_counter() - t0
-    launches["xl"] = kernels.LAUNCHES.snapshot()
+    launches["d"] = ("xl", kernels.LAUNCHES.snapshot())
     need(stats["n_reads"] == len(reads), f"txome: read count {stats}")
     need(stats["probe"] == "xl", f"txome: probe {stats['probe']}")
     table_cache.join_pending()
@@ -695,7 +915,7 @@ def e2e_txome(d, fa, reads, launches):
     stats = run_tag(d, fa, files, "classic", "classic_gpu",
                     ["--probe", "classic", "--load-index", idx])
     stats["wall_s"] = time.perf_counter() - t0
-    launches["classic"] = kernels.LAUNCHES.snapshot()
+    launches["e"] = ("classic", kernels.LAUNCHES.snapshot())
     need(stats["probe"] == "classic", f"classic: probe {stats['probe']}")
     need(stats["n_reads"] == N_CLASSIC_READS, f"classic: read count {stats}")
     same_prefix(d, "classic", "all_gpu", "classic_gpu", N_CLASSIC_READS,
@@ -703,6 +923,53 @@ def e2e_txome(d, fa, reads, launches):
     say_e2e("classic", stats, f"its bytes equal (d)'s on its "
                               f"{N_CLASSIC_READS} reads (ssv, FASTQ)")
     out["classic"] = stats
+    gc.collect()
+
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    stats = run_tag(d, fa, files, "classic", "sharded_gpu",
+                    ["--sharded-bf", "--load-index", idx])
+    stats["wall_s"] = time.perf_counter() - t0
+    launches["f"] = ("sharded", kernels.LAUNCHES.snapshot())
+    need(stats["probe"] == "sharded", f"sharded: probe {stats['probe']}")
+    need(stats["n_reads"] == N_CLASSIC_READS, f"sharded: read count {stats}")
+    same_prefix(d, "sharded", "all_gpu", "sharded_gpu", N_CLASSIC_READS,
+                False)
+    say_e2e("sharded", stats, f"--sharded-bf, 1 shard; its bytes equal "
+                              f"(d)'s on its {N_CLASSIC_READS} reads")
+    out["sharded"] = stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from shark_tpu_torch.config import SharkConfig
+    from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
+    from shark_tpu_torch.pipeline import run_pipeline
+
+    t0 = time.perf_counter()
+    clf = ShardedBFClassifier(
+        SharkIndex.load(idx), max_winners=16, c=C,
+        devices=[torch.device("cuda", 0)] * SHARDS, slack=0.05)
+    build_s = time.perf_counter() - t0
+    kernels.LAUNCHES.reset()
+    cfg = SharkConfig(
+        fasta_path=fa, sample1_path=files["classic", "1"],
+        out1_path=os.path.join(d, "sharded8_gpu.1.fq"),
+        ssv_path=os.path.join(d, "sharded8_gpu.ssv"), k=K, c=C, bf_gb=BF_GB)
+    stats = run_pipeline(cfg, classifier=clf)
+    stats["wall_s"] = time.perf_counter() - t0
+    launches["g"] = ("sharded", kernels.LAUNCHES.snapshot())
+    need(stats.get("native"), "sharded x8: not the native engine")
+    need(stats["n_reads"] == N_CLASSIC_READS, f"sharded x8: read count {stats}")
+    need(clf.cap_mult > 1, "sharded x8: reprobe never fired")
+    same_prefix(d, "sharded x8", "all_gpu", "sharded8_gpu", N_CLASSIC_READS,
+                False)
+    stats["cap_mult"] = clf.cap_mult
+    stats["classifier_build_s"] = build_s
+    say_e2e("sharded8", stats, f"{SHARDS} shards on one card, slack 0.05 "
+            f"(cap_mult grew to {clf.cap_mult:g}, classifier built in "
+            f"{build_s:.1f} s); its bytes equal (d)'s on its "
+            f"{N_CLASSIC_READS} reads")
+    out["sharded8"] = stats
     return out
 
 
@@ -816,7 +1083,12 @@ def main() -> int:
             f"{cclf.dix.pay.numel() * 4 / 1e9:.2f} GB)")
         record.update(check_txome_kernels(xclf, cclf, tgenes, shapes,
                                           record_shape, timer))
-        del xclf, cclf, tindex
+        del xclf
+        gc.collect()
+        torch.cuda.empty_cache()
+        record.update(check_sharded_kernels(tindex, cclf, tgenes, shapes,
+                                            record_shape, timer))
+        del cclf, tindex
         gc.collect()
         torch.cuda.empty_cache()
         if args.quick:
@@ -838,7 +1110,7 @@ def main() -> int:
         b = kernels.LAUNCHES.snapshot()
         e2e_stats["paired"] = e2e(work, "paired", pgenes, b"GENE",
                                   *pair_reads(rng, pgenes, N_PAIRS))
-        launches["hashed"] = kernels.LAUNCHES.snapshot()
+        launches["a-c"] = ("hashed", kernels.LAUNCHES.snapshot())
         e2e_stats.update(e2e_txome(
             tx_dir, tx_fa, panel_reads(np.random.default_rng(2027), tgenes,
                                        N_TXOME_READS), launches))
@@ -847,18 +1119,18 @@ def main() -> int:
     e2e_stats["txome"]["geometry_phase3"] = geometry
     need(e2e_stats["homolog"]["group_rows"] > 0, "homolog: no group verdicts")
     need(b["pairs"] > a["pairs"], "homolog: extract_pairs never launched")
-    for path, counts in launches.items():
-        say(f"launches on the {path} path: {json.dumps(counts)}")
+    for run, (path, counts) in launches.items():
+        say(f"launches of ({run}), the {path} path: {json.dumps(counts)}")
         for name in PATH_KERNELS[path]:
             need(counts[name] > 0,
                  f"kernel {name} was not launched on the {path} path")
-        for name in ("probe", "probe_xl", "classic"):
+        for name in PATH_ONLY:
             if name not in PATH_KERNELS[path]:
                 need(counts[name] == 0,
                      f"the {path} path launched the {name} kernel")
-    total = {name: sum(c[name] for c in launches.values())
+    total = {name: sum(c[name] for _, c in launches.values())
              for name in KERNEL_INFO}
-    say(f"launches over (a)-(e): {json.dumps(total)} (hashed path after "
+    say(f"launches over (a)-(g): {json.dumps(total)} (hashed path after "
         f"(a): {json.dumps(a)}, after (b): {json.dumps(b)})")
 
     kernels_line = {"kernels": []}

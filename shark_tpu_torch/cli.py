@@ -7,10 +7,13 @@ size in GB units of 2**33 bits; -q minimum base quality; -s single-
 association mode; -t threads; -v verbose. Associations go to stdout as
 "read_id gene_id" lines.
 
-Device extras: --batch-size, --max-read-len, --backend, --save-index/
---load-index, --ssv, --resume and --stats-json. The flags of paths not in
-the PyTorch port yet (--devices > 1, --sharded-bf, --num-hosts > 1,
---backend native, --profile-dir) are accepted by the parser and then refused with a "not in the port yet" error.
+Device extras: --batch-size, --max-read-len, --backend, --sharded-bf with
+--devices N (the Bloom filter sharded over N cards; more than the cards
+present is an error), --save-index/--load-index, --ssv, --resume and
+--stats-json. The flags of paths not in the PyTorch port yet (--devices >
+1 without --sharded-bf, --num-hosts > 1, --backend native, --profile-dir)
+are accepted by the parser and then refused with a "not in the port yet"
+error.
 """
 
 from __future__ import annotations
@@ -67,9 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "without one; 'cpu' runs the kernels' plain "
                         "PyTorch versions on the host")
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel device count (only 1 is ported)")
+                   help="device count of --sharded-bf (0 = all cards; "
+                        "without --sharded-bf only 1 is ported)")
     p.add_argument("--sharded-bf", action="store_true",
-                   help="shard the Bloom filter (not ported)")
+                   help="shard the Bloom filter by address range over "
+                        "--devices cards (--backend cpu: one CPU shard)")
     p.add_argument("--save-index", default="",
                    help="serialize the built index to this .npz path")
     p.add_argument("--load-index", default="",
@@ -145,6 +150,10 @@ def main(argv=None) -> int:
             raise ValueError("--host-id must be in [0, num-hosts)")
         if args.num_hosts > 1:
             raise not_ported("--num-hosts > 1", "multi-host")
+        if cfg.sharded_bf:
+            from shark_tpu_torch.parallel.mesh import make_devices
+
+            make_devices(cfg.devices, "cpu" if cfg.backend == "cpu" else None)
     except (ValueError, NotImplementedError) as e:
         print(f"shark-tpu-torch: {e}\naborting...", file=sys.stderr)
         return 1

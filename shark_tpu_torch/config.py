@@ -8,7 +8,8 @@ k in [1, 31]; c in [0, 1]; bf size given in "GB" units where 1 unit equals
 The fields are those of shark_tpu's SharkConfig, so a config can be built
 from either package's CLI. Options whose code path is not in the PyTorch
 port yet are rejected by validate() with NotImplementedError, never
-ignored: the multi-device modes, --backend native and --profile-dir.
+ignored: the replicated multi-device mode (--devices > 1 without
+--sharded-bf), --backend native and --profile-dir.
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ class SharkConfig:
     # "" = the CUDA card (cuda:0; raises when there is none); "cpu" runs
     # every kernel's plain PyTorch version on the host
     backend: str = ""
-    devices: int = 1  # data-parallel device count (only 1 is ported)
-    sharded_bf: bool = False  # not ported
+    # devices of the sharded-BF mode (0 = all cards); the replicated mode
+    # with more than one device is not ported
+    devices: int = 1
+    sharded_bf: bool = False  # shard the Bloom filter over the devices
     save_index: str = ""  # optional path to serialize the built index
     load_index: str = ""  # optional path to load a prebuilt index
     ssv_path: str = ""  # write ssv here instead of stdout (native path)
@@ -111,10 +114,9 @@ class SharkConfig:
             raise ValueError("backend must be '' (the CUDA card) or 'cpu'")
         if self.profile_dir:
             raise not_ported("--profile-dir", "--profile-dir")
-        if self.sharded_bf:
-            raise not_ported("--sharded-bf", "sharded Bloom filter")
-        if self.devices > 1:
-            raise not_ported("--devices > 1", "multi-GPU")
+        if self.devices > 1 and not self.sharded_bf:
+            raise not_ported("--devices > 1 without --sharded-bf",
+                             "multi-GPU")
 
     def finalize_outputs(self) -> None:
         """Apply the reference's output-path defaults

@@ -36,11 +36,14 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-# The kernels of the classify paths, one source each: the front end, the
-# three probes (hashed, xl, classic), the finish and the pair stream. The
-# finish takes two launches of its source (a batch-wide pass, then one
-# block per read) and counts as one kernel.
-KERNELS = ("front", "probe", "finish", "pairs", "probe_xl", "classic")
+# The kernels of the classify paths: the front end, the three probes
+# (hashed, xl, classic), the finish, the pair stream, and the sharded
+# Bloom filter's routing round (route, owner probe, return; all three in
+# csrc/route.cu). The finish takes two launches of its source (a
+# batch-wide pass, then one block per read) and the route three (count,
+# scan, scatter); each counts as one kernel.
+KERNELS = ("front", "probe", "finish", "pairs", "probe_xl", "classic",
+           "shard_route", "shard_probe", "shard_return")
 
 _lib = None
 _lock = threading.Lock()
@@ -191,6 +194,14 @@ _SIGNATURES = {
                       _VP, _VP],
     # idx_hi, idx_lo, win_valid, n, bf_rank, pay, tagv, payv, stream
     "shkk_classic": [_VP, _VP, _VP, _L, _VP, _VP, _VP, _VP, _VP],
+    # idx_hi, idx_lo, win_valid, n_src, Pn, n, wps, wide, cap, counts,
+    # offs, send, slot, owner, overflow, stream
+    "shkk_shard_route": [_VP, _VP, _VP, _I, _L, _I, _L, _I, _L, _VP, _VP,
+                         _VP, _VP, _VP, _VP, _VP],
+    # recv, per_owner, total, bf_rank, wps, pay, rows_max, reply, stream
+    "shkk_shard_probe": [_VP, _L, _L, _VP, _L, _VP, _L, _VP, _VP],
+    # back, Pn, total, n, cap, owner, slot, tagv, payv, stream
+    "shkk_shard_return": [_VP, _L, _L, _I, _L, _VP, _VP, _VP, _VP, _VP],
 }
 
 

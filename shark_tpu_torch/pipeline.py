@@ -36,6 +36,7 @@ from shark_tpu_torch.index.structure import SharkIndex
 from shark_tpu_torch.io.encode import ReadBatch, encode_batch, fused_length
 from shark_tpu_torch.io.fastx import read_fasta, read_fastq_pairs
 from shark_tpu_torch.io.writer import OutputWriter
+from shark_tpu_torch.parallel.mesh import make_devices
 from shark_tpu_torch.utils.timers import PhaseTimer
 
 FastqRecord = Tuple[str, bytes, bytes]
@@ -146,6 +147,7 @@ def _drain(
     result,
     writer: OutputWriter,
     max_winners: int,
+    reprobe=None,
     groups=None,
 ) -> None:
     """Decode one batch's verdicts and emit through the Python writer
@@ -153,7 +155,7 @@ def _drain(
     path via _winner_pairs."""
     ri, gi = _winner_pairs(
         cfg, index, result, batch.n, batch.codes, max_winners,
-        groups=groups,
+        reprobe=reprobe, groups=groups,
     )
     names = index.gene_names
     rec2 = batch.recs2
@@ -180,6 +182,7 @@ def _winner_pairs(
     codes: np.ndarray,
     max_winners: int,
     packed_np: Optional[np.ndarray] = None,
+    reprobe=None,
     spec=None,
     spec_state: Optional[dict] = None,
     groups=None,
@@ -188,8 +191,10 @@ def _winner_pairs(
     """Device result -> (read_idx, gene_idx) association arrays, read-ascending,
     genes ascending within a read (the reference's emission order,
     ReadAnalyzer.hpp:104-108 + ReadOutput.hpp:43-48). `packed_np` supplies a
-    pre-fetched packed-verdict array (grouped-fetch fast path); `groups`
-    (GeneGroups) expands
+    pre-fetched packed-verdict array (grouped-fetch fast path); `reprobe`
+    (sharded-BF spill-and-retry) re-runs the batch with a larger routing
+    cap when its result reports dropped probes; `groups` (GeneGroups)
+    expands
     device GROUP verdicts (PACK_GRP: tie-heavy reads scored as one deduped
     gene set) into their member lists.
 
@@ -202,7 +207,8 @@ def _winner_pairs(
     capacity to speculate with (0 = don't)."""
     ri1, gi1, grp_rows, packed = _winner_pairs_base(
         cfg, index, result, n, codes, max_winners,
-        packed_np=packed_np, spec=spec, spec_state=spec_state,
+        packed_np=packed_np, reprobe=reprobe, spec=spec,
+        spec_state=spec_state,
     )
     if counters is not None:
         counters["group_rows"] = counters.get("group_rows", 0) + int(
@@ -250,11 +256,36 @@ def _winner_pairs_base(
     codes: np.ndarray,
     max_winners: int,
     packed_np: Optional[np.ndarray] = None,
+    reprobe=None,
     spec=None,
     spec_state: Optional[dict] = None,
 ):
     """(read_idx, gene_idx, emitted_group_rows, packed) for the non-group
     verdicts; group rows (PACK_GRP) are returned for the caller to expand."""
+    if len(result) > 4:  # sharded-BF routing overflow counter
+        ovf = int(_np(result[4]).sum())
+        if ovf and reprobe is not None:
+            # The one piece of device work the drain thread issues: it
+            # fires only on a routing overflow, which the adaptive cap
+            # keeps at zero for uniform XXH64 hashing. Replaying the batch
+            # from the dispatch thread would mean re-ordering the native
+            # emit for a case that does not fire in practice. reprobe
+            # launches on this thread's current stream and returns with
+            # its result complete (ShardedBFClassifier.reprobe).
+            print(
+                f"[shark-tpu-torch] routing overflow ({ovf} probes), "
+                "retrying batch with a larger cap",
+                file=sys.stderr,
+            )
+            result = reprobe(codes)
+            packed_np = None  # the grouped pre-fetch is stale for this batch
+            spec = None  # ... as is any speculative pair stream
+            ovf = int(_np(result[4]).sum())
+        if ovf:
+            raise RuntimeError(
+                f"sharded-BF probe bucket overflow ({ovf} probes dropped); "
+                "increase the routing slack"
+            )
     packed_dev, winners_dev = result[0], result[1]
     packed = (packed_np if packed_np is not None else _np(packed_dev))[:n]
     winner0 = packed & ((1 << PACK_NW_SHIFT) - 1)
@@ -615,6 +646,7 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
                         c_,
                         cfg.max_winners,
                         packed_np=packed_all[off : off + cfg.batch_size],
+                        reprobe=getattr(classifier, "reprobe", None),
                         spec=spec_,
                         spec_state=spec_state,
                         groups=classifier.groups,
@@ -965,7 +997,18 @@ def _run_pipeline_inner(
         index = load_or_build_index(cfg, timer)
     index_s = timer.elapsed()
 
-    if classifier is None:
+    if classifier is not None:
+        pass
+    elif cfg.sharded_bf:
+        from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
+
+        # the sharded layout routes probes to owning shards; the
+        # hashed/xl/classic selection is a replicated-index concept
+        classifier = ShardedBFClassifier(
+            index, max_winners=cfg.max_winners, c=cfg.c,
+            devices=make_devices(cfg.devices, device),
+        )
+    else:
         classifier = Classifier(
             index, max_winners=cfg.max_winners, c=cfg.c, device=device,
             probe=None if cfg.probe == "auto" else cfg.probe,
@@ -1058,11 +1101,13 @@ def _run_pipeline_inner(
             b, res = pending.pop(0)
             _drain(
                 cfg, index, b, res, writer, cfg.max_winners,
+                reprobe=getattr(classifier, "reprobe", None),
                 groups=classifier.groups,
             )
     for b, res in pending:
         _drain(
             cfg, index, b, res, writer, cfg.max_winners,
+            reprobe=getattr(classifier, "reprobe", None),
             groups=classifier.groups,
         )
     writer.close()

@@ -6,8 +6,10 @@ paths' shapes. These tests cover the modes those paths do not reach: the
 entry8 table, the extension-row geometry, the finish's global-scratch key
 buffer for wide geometries, every group tier, k and Bloom-size variants
 of the front end and of the classic and xl probes, the xl geometries
-with and without a side table, reads shorter than k, and whole
-pipelines on random workloads. Inputs are made with numpy from seeds; results must be equal,
+with and without a side table, reads shorter than k, the sharded Bloom
+filter's routing kernels at n in {1, 2, 8} shards, narrow and wide, with
+and without overflow (and reprobe from another thread on another
+stream), and whole pipelines on random workloads. Inputs are made with numpy from seeds; results must be equal,
 bit for bit.
 
 On a machine with a card (and without jax, which tests/conftest.py
@@ -25,6 +27,8 @@ from shark_tpu_torch.classify.step import Classifier
 from shark_tpu_torch.config import SharkConfig
 from shark_tpu_torch.index.build import build_index
 from shark_tpu_torch.ops.kmers import encode_bytes
+from shark_tpu_torch.parallel import sharded_bf
+from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
 from shark_tpu_torch.pipeline import run_pipeline
 
 pytestmark = pytest.mark.cuda
@@ -347,3 +351,125 @@ def test_classifier_probe_layouts(cuda, probe):
         rng.integers(0, 1100, size=700))]
     codes = encode(reads, L=104)
     equal(gpu(codes), cpu(codes))
+
+
+# ---------------------------------------------------------------------------
+# K7a-c (sharded routing) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _transposed(buf):
+    return buf.view(torch.int32).transpose(0, 1).contiguous().view(torch.uint32)
+
+
+def check_shard_kernels(hi, lo, valid, n, wps, wide, cap, dix=None):
+    """K7a on [n, b, Ls] windows against its plain version, then (with the
+    shard tables `dix`) K7b on what the owners receive and K7c on what
+    comes back. Returns K7a's outputs."""
+    shp = (n, hi.shape[0] // n, hi.shape[1])
+    win = [t.reshape(shp) for t in (hi, lo, valid)]
+    route = dict(n=n, wps=wps, wide=wide, cap=cap)
+    k7a = sharded_bf.shard_route(*win, **route)
+    equal(k7a, sharded_bf.shard_route_plain(*win, **route))
+    if dix is not None:
+        recv = _transposed(k7a[0])
+        reply = sharded_bf.shard_probe(recv, dix.bf_rank, dix.pay)
+        equal([reply], [sharded_bf.shard_probe_plain(recv, dix.bf_rank,
+                                                     dix.pay)])
+        back = _transposed(reply)
+        equal(sharded_bf.shard_return(back, k7a[2], k7a[1]),
+              sharded_bf.shard_return_plain(back, k7a[2], k7a[1]))
+    return k7a
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("n", [1, 2, 8])
+def test_shard_kernels(cuda, n, wide, overflow):
+    size_bits = 1 << 26
+    genes, index = txome_like_index(17, size_bits)
+    clf = ShardedBFClassifier(index, devices=[cuda] * n, force_wide=wide,
+                              slack=0.05 if overflow else None)
+    for B in (8192, 65536):
+        wins = windows(cuda, genes, B, 17, size_bits, B + n)
+        k7a = check_shard_kernels(*wins, n, clf.wps, clf.wide,
+                                  clf._probe_cap(B // n, 104), clf.dix[cuda])
+        assert bool((k7a[3] > 0).all()) == overflow
+
+
+def test_shard_route_wide_geometry(cuda):
+    """K7a alone at a > 2^36-bit filter on synthetic addresses, each shard
+    boundary's +-1 word included: kernel == plain, and its owners equal a
+    numpy uint64 oracle."""
+    n = 8
+    size_bits = (1 << 37) + (5 << 33)
+    wps = size_bits // 32 // n
+    rng = np.random.default_rng(17)
+    addr = (rng.integers(0, 1 << 62, size=8 * 4096, dtype=np.int64)
+            .astype(np.uint64) % np.uint64(size_bits))
+    edges = [(s * wps + d) * 32 + 7 for s in range(1, n) for d in (-1, 0, 1)]
+    addr[:len(edges)] = edges
+    hi = torch.from_numpy((addr >> np.uint64(32)).astype(np.uint32)).to(cuda)
+    lo = torch.from_numpy((addr & np.uint64(0xFFFFFFFF)).astype(np.uint32)).to(cuda)
+    valid = torch.from_numpy(rng.random(addr.size) < 0.9).to(cuda)
+    _, slot, owner, _ = check_shard_kernels(
+        hi.view(-1, 64), lo.view(-1, 64), valid.view(-1, 64), n, wps, True,
+        cap=4096 + 512)
+    want = ((addr >> np.uint64(5)) // np.uint64(wps)).astype(np.int32)
+    v = valid.cpu().numpy()
+    np.testing.assert_array_equal(owner.cpu().numpy().reshape(-1)[v], want[v])
+    assert (owner.cpu().numpy().reshape(-1)[~v] == -1).all()
+
+
+@pytest.mark.parametrize("slack", [None, 0.05])
+def test_sharded_classifier_matches_cpu(cuda, slack):
+    """Eight shards on the card against eight on the CPU, all five
+    outputs; and the verdicts of the card's sharded classifier equal the
+    classic Classifier's when nothing overflows."""
+    genes, index = txome_like_index(17, 1 << 26)
+    rng = np.random.default_rng(18)
+    reads = [g[s:s + 100].tobytes() for g, s in zip(
+        genes[rng.integers(0, 64, size=1024)],
+        rng.integers(0, 1100, size=1024))]
+    codes = encode(reads, L=104)
+    gpu = ShardedBFClassifier(index, max_winners=8, devices=[cuda] * 8,
+                              slack=slack)
+    got = gpu(codes)
+    equal(got, ShardedBFClassifier(index, max_winners=8,
+                                   devices=["cpu"] * 8, slack=slack)(codes))
+    if slack is None:
+        assert int(got[4].sum()) == 0
+        equal(got[:4], Classifier(index, max_winners=8, device=cuda,
+                                  probe="classic")(codes))
+    else:
+        assert int(got[4].sum()) > 0
+
+
+def test_reprobe_on_another_thread_and_stream(cuda):
+    """reprobe runs on the pipeline's drain thread: from a thread whose
+    current stream is a side stream, it launches there and returns a
+    result that the thread reads complete."""
+    import threading
+
+    genes, index = txome_like_index(17, 1 << 26)
+    rng = np.random.default_rng(19)
+    reads = [g[s:s + 100].tobytes() for g, s in zip(
+        genes[rng.integers(0, 64, size=4096)],
+        rng.integers(0, 1100, size=4096))]
+    codes = encode(reads, L=104)
+    want = ShardedBFClassifier(index, devices=["cpu"] * 8)(codes)
+    clf = ShardedBFClassifier(index, devices=[cuda] * 8, slack=0.05)
+    out = {}
+
+    def drain():
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side):
+            result = clf.reprobe(codes)
+            out["got"] = [x.to("cpu", non_blocking=True) for x in result]
+            side.synchronize()
+
+    th = threading.Thread(target=drain)
+    th.start()
+    th.join()
+    assert clf.cap_mult > 1
+    equal(out["got"], want)

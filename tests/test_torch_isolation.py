@@ -6,6 +6,7 @@
 - with no CUDA device and no explicit request for the CPU, its entry
   points raise instead of carrying on on the CPU;
 - every option whose path is not ported raises "not in the port yet";
+- --sharded-bf asks for no more devices than there are;
 - probe options are refused as shark_tpu refuses them.
 """
 
@@ -21,6 +22,9 @@ from shark_tpu_torch import cli, pipeline
 from shark_tpu_torch.classify import step
 from shark_tpu_torch.config import NOT_PORTED, SharkConfig
 from shark_tpu_torch.index.build import build_index
+from shark_tpu_torch.parallel import sharded_bf
+from shark_tpu_torch.parallel.mesh import make_devices
+from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "shark_tpu_torch")
@@ -43,7 +47,8 @@ def test_import_leaves_out_jax_and_shark_tpu():
     code = (
         "import sys, shark_tpu_torch, shark_tpu_torch.cli, "
         "shark_tpu_torch.convert, shark_tpu_torch.kernels, "
-        "shark_tpu_torch.classify.hashed, shark_tpu_torch.classify.table_cache; "
+        "shark_tpu_torch.classify.hashed, shark_tpu_torch.classify.table_cache, "
+        "shark_tpu_torch.parallel.mesh, shark_tpu_torch.parallel.sharded_bf; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'shark_tpu')); print(bad); sys.exit(bool(bad))"
     )
@@ -102,6 +107,10 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):
                       ssv_path=str(tmp_path / "o.ssv"))
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline.run_pipeline(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedBFClassifier(index)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-r", str(fa), "-1", str(fq), "--sharded-bf"])
 
 
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
@@ -123,6 +132,12 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
     stash = torch.from_numpy(hashed.empty_stash())
     hashed.probe_xl(idx, idx, valid, torch.zeros((64, 4), dtype=torch.uint32),
                     side, stash, xl)
+    win = lambda t: t.view(1, 2, 3)  # noqa: E731
+    send, slot, owner, _ = sharded_bf.shard_route(
+        win(idx), win(idx), win(valid), n=1, wps=4, wide=False, cap=8)
+    reply = sharded_bf.shard_probe(send.transpose(0, 1).contiguous(),
+                                   rows.view(1, 4, 2), rows.view(1, 4, 2))
+    sharded_bf.shard_return(reply, owner, slot)
     assert kernels.LAUNCHES.snapshot() == {n: 0 for n in kernels.KERNELS}
 
 
@@ -130,7 +145,6 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
     "flags",
     [
         ["--devices", "2"],
-        ["--sharded-bf"],
         ["--num-hosts", "2", "--coordinator", "localhost:1234"],
         ["--backend", "native"],
         ["--profile-dir", "trace"],
@@ -145,6 +159,28 @@ def test_deferred_flags_raise_not_ported(flags, capsys, tmp_path):
     rc = cli.main(["-r", str(fa), "-1", str(fq), *flags])
     assert rc == 1
     assert NOT_PORTED in capsys.readouterr().err
+
+
+def test_sharded_devices_past_the_count_raise(capsys, tmp_path):
+    """--devices N is as strict as shark_tpu's make_mesh: more devices
+    than there are is an error (the CPU counts as one device)."""
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        make_devices(2, "cpu")
+    assert make_devices(0, "cpu") == make_devices(1, "cpu") == [
+        torch.device("cpu")]
+    fa = tmp_path / "g.fa"
+    fq = tmp_path / "r.fq"
+    fa.write_bytes(b">g\nACGT\n")
+    fq.write_bytes(b"@r\nACGT\n+\nIIII\n")
+    rc = cli.main(["-r", str(fa), "-1", str(fq), "--sharded-bf", "--devices",
+                   "2", "--backend", "cpu"])
+    assert rc == 1
+    assert "requested 2 devices, have 1" in capsys.readouterr().err
+    cfg = SharkConfig(fasta_path=str(fa), sample1_path=str(fq),
+                      out1_path=str(tmp_path / "o.fq"), sharded_bf=True,
+                      devices=3, backend="cpu")
+    with pytest.raises(ValueError, match="requested 3 devices"):
+        pipeline.run_pipeline(cfg)
 
 
 @pytest.mark.parametrize("probe", [None, "hashed", "classic"])
