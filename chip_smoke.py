@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with one card:
 Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: nvcc for the nine CUDA kernels (csrc/*.cu, one nvcc each, all
-   started together) and g++ for the C++ host engine, timed;
+2. build: nvcc for the eleven CUDA kernels (the nine csrc/*.cu, one nvcc
+   each, all started together) and g++ for the C++ host engine, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main paths' shapes (B = 8192 and 65536 reads,
    L = 104 single-end and 208 paired): exact equality (integer code,
@@ -46,7 +46,16 @@ Phases, each printing its lines; any failure exits non-zero:
    port's oracle; (e), (f) and (g) must write the prefix of (d)'s bytes.
    The launch counters are zeroed before each run and read after it:
    (a)-(c) launch the hashed path's kernels, (d) the xl path's, (e) the
-   classic path's, (f) and (g) the sharded path's.
+   classic path's, (f) and (g) the sharded path's;
+5. the port's counterparts of the two Pallas experiments, through their
+   entry points at their default sizes (shark_tpu_torch.experiments:
+   gather_tiles.main, 2^20 random 512-byte tiles of a 1 GiB table;
+   resident_match.main, one 5,767,168-probe batch against a 16 MB table),
+   each run with the counters zeroed before it and read after; then each
+   kernel against its plain version on the same inputs at that size, and
+   against its library form (table[idx] rows; the gather+match of the
+   hashed probe), exact, with kernel, plain and library times and the
+   bound. No classify run (a)-(g) may launch these two kernels.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
@@ -58,11 +67,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import threading
@@ -107,18 +116,25 @@ KERNEL_INFO = {
                     "shark_tpu/parallel/sharded_bf.py:245"),
     "shard_return": ("shard_return", "shark_tpu_torch/csrc/route.cu",
                      "shark_tpu/parallel/sharded_bf.py:256"),
+    "gather_tiles": ("gather_tiles", "shark_tpu_torch/csrc/gather_tiles.cu",
+                     "bench/pallas_probe.py:34"),
+    "resident_match": ("resident_match",
+                       "shark_tpu_torch/csrc/resident_match.cu",
+                       "bench/pallas_vmem_match.py:55"),
 }
-# the kernels each end-to-end path must launch; a path launches no probe
-# or routing kernel of another path
+# the kernels each run must launch; a run launches no probe, routing or
+# experiment kernel of another path
 PATH_KERNELS = {
     "hashed": ("front", "probe", "finish", "pairs"),
     "xl": ("front", "probe_xl", "finish"),
     "classic": ("front", "classic", "finish"),
     "sharded": ("front", "shard_route", "shard_probe", "shard_return",
                 "finish"),
+    "gather_tiles": ("gather_tiles",),
+    "resident_match": ("resident_match",),
 }
 PATH_ONLY = ("probe", "probe_xl", "classic", "shard_route", "shard_probe",
-             "shard_return")
+             "shard_return", "gather_tiles", "resident_match")
 SHARDS = 8
 
 
@@ -257,28 +273,6 @@ def codes_for_shape(rng, genes, B, L, single=homolog_reads):
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
-
-
-class Timer:
-    """Median of REPS runs of fn(), each timed with CUDA events after a
-    warm-up, with the 50 MB L2 flushed before every run."""
-
-    def __init__(self):
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn) -> float:
-        fn()
-        times = []
-        for _ in range(REPS):
-            self.flush.fill_(1)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
 
 
 def bound(nbytes: float, ops: float):
@@ -429,13 +423,16 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
 
 def say_rows(rows, B, L):
     for name, r in rows.items():
-        lib = ("-" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        say(f"kernel {KERNEL_INFO[name][0]:<17} B={B:<6} L={L:<4} "
-            f"exact (max|err| {r['err']})  kernel_ms={r['ms']:.4f}  "
-            f"plain_ms={r['plain_ms']:.4f}  library_ms={lib}  "
-            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}; bytes "
-            f"{r['bound'][2]:.4f}, operations {r['bound'][3]:.4f})")
+        say_row(name, r, f"B={B:<6} L={L:<4}")
+
+
+def say_row(name, r, where):
+    lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    say(f"kernel {KERNEL_INFO[name][0]:<17} {where} "
+        f"exact (max|err| {r['err']})  kernel_ms={r['ms']:.4f}  "
+        f"plain_ms={r['plain_ms']:.4f}  library_ms={lib}  "
+        f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}; bytes "
+        f"{r['bound'][2]:.4f}, operations {r['bound'][3]:.4f})")
 
 
 def xl_geometry(clf):
@@ -725,6 +722,101 @@ def check_sharded_kernels(tindex, cclf, genes, shapes, record_shape, timer):
     return record
 
 
+def check_experiments(timer, launches):
+    """Phase 5: each experiment's entry point at its default size, with
+    its launches in launches[name]; then each kernel against its plain
+    version and its library form at that size. Returns their record."""
+    from shark_tpu_torch import kernels
+    from shark_tpu_torch.experiments import gather_tiles as G
+    from shark_tpu_torch.experiments import resident_match as R
+
+    t_phase = time.perf_counter()
+    for name, mod in (("gather_tiles", G), ("resident_match", R)):
+        kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        need(mod.main([]) == 0, f"{name}: main() failed")
+        launches[name] = (name, kernels.LAUNCHES.snapshot())
+        say(f"experiment {name}: main() at its defaults in "
+            f"{time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    record = {}
+
+    # P1: 2^20 probes of a 1 GiB table
+    table_h, _, idx_h = G.make_inputs(20, 27)
+    table = torch.from_numpy(table_h).to(dev)
+    idx = torch.from_numpy(idx_h).to(dev)
+    del table_h, idx_h
+    tiles = table.view(-1, G.TILE)
+    got = G.gather_tiles(tiles, idx)
+    err = same("gather_tiles", [got], [G.gather_tiles_plain(tiles, idx)])
+    idx64 = idx.to(torch.int64)
+    t32 = table.view(torch.int32)
+    same("gather_tiles rows vs table[idx]", [G.rows_of_tiles(got, idx)],
+         [t32[idx64].view(torch.uint32)])
+    del got
+    tile = idx64 >> 6
+    tiles32 = tiles.view(torch.int32)
+    n = idx.numel()
+    touched = int(torch.unique(tile).numel())
+    rows_ms = timer(lambda: t32[idx64])
+    r = record["gather_tiles"] = dict(
+        err=err,
+        ms=timer(lambda: G.gather_tiles(tiles, idx)),
+        plain_ms=timer(lambda: G.gather_tiles_plain(tiles, idx)),
+        library_ms=timer(lambda: tiles32[tile]),
+        bound=bound(n * 4 + touched * 512 + n * 512, n * 4),
+    )
+    say_row("gather_tiles", r, f"n={n} rows=2^27")
+    say(f"experiment gather_tiles: {touched} distinct tiles of "
+        f"{tiles.shape[0]}; kernel {n / r['ms'] / 1e3:.1f} M tiles/s, "
+        f"table[idx] 8-byte rows {rows_ms:.4f} ms "
+        f"({n / rows_ms / 1e3:.1f} M rows/s)")
+    del table, idx, idx64, t32, tile, tiles, tiles32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # P2: one production batch against a 16 MB table
+    host = R.build_inputs(R.N_BATCH, R.LGB)
+    table, bucket, rest, valid = (torch.from_numpy(a).to(dev) for a in host)
+    rows, want, t128 = (torch.from_numpy(a).to(dev)
+                        for a in R.probe_inputs(*host))
+    del host
+    got = R.resident_match(rows, want, t128)
+    err = same("resident_match", [got],
+               [R.resident_match_plain(rows, want, t128)])
+    same("resident_match vs gather+match", [got],
+         [R.match_gather(table, bucket, rest, valid)])
+    hits = int((got[:, 0].view(torch.int32) != 0).sum())
+    del got
+    b64 = bucket.to(torch.int64)
+    tbl = table.view(torch.int32)
+    n = rows.numel()
+    n_valid = int(valid.sum())
+    touched = int(torch.unique(b64[valid]).numel())
+    warm_ms = timer(lambda: R.resident_match(rows, want, t128), flush=False)
+    gm_ms = timer(lambda: R.match_gather(table, bucket, rest, valid))
+    sel_ms = timer(lambda: torch.index_select(tbl, 0, b64))
+    r = record["resident_match"] = dict(
+        err=err,
+        ms=timer(lambda: R.resident_match(rows, want, t128)),
+        plain_ms=timer(lambda: R.resident_match_plain(rows, want, t128)),
+        library_ms=timer(lambda: tbl[b64]),
+        bound=bound(n * 16 + touched * 32, n_valid * (4 * 8 + 10)),
+    )
+    say_row("resident_match", r, f"n={n} lgB={R.LGB}")
+    say(f"experiment resident_match: {n_valid} valid probes, {hits} hits, "
+        f"{touched} buckets of {table.shape[0]}; L2 flushed "
+        f"{r['ms']:.4f} ms ({n / r['ms'] / 1e3:.1f} M probes/s), L2 warm "
+        f"{warm_ms:.4f} ms ({n / warm_ms / 1e3:.1f} M probes/s); "
+        f"match_gather {gm_ms:.4f} ms; the bucket rows by index_select "
+        f"{sel_ms:.4f} ms")
+    del table, bucket, rest, valid, rows, want, t128, b64, tbl
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"experiments: phase 5 in {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 # ---------------------------------------------------------------------------
 # end to end
 # ---------------------------------------------------------------------------
@@ -994,6 +1086,7 @@ def main() -> int:
     from shark_tpu_torch.classify.step import Classifier
     from shark_tpu_torch.index.build import build_index
     from shark_tpu_torch.io import native
+    from shark_tpu_torch.utils.timers import cuda_ms
 
     # 1. the card
     smi = subprocess.run(
@@ -1042,7 +1135,7 @@ def main() -> int:
         f", built in {time.perf_counter() - t0:.1f} s")
     shapes = [(8192, 104)] if args.quick else SHAPES
     record_shape = shapes[0] if args.quick else RECORD_SHAPE
-    timer = Timer()
+    timer = functools.partial(cuda_ms, reps=REPS)
     record = check_kernels(clf, hgenes, shapes, record_shape, timer)
     del clf
 
@@ -1117,6 +1210,11 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry
+
+    # 5. the two Pallas experiments' counterparts at their default sizes
+    gc.collect()
+    torch.cuda.empty_cache()
+    record.update(check_experiments(timer, launches))
     need(e2e_stats["homolog"]["group_rows"] > 0, "homolog: no group verdicts")
     need(b["pairs"] > a["pairs"], "homolog: extract_pairs never launched")
     for run, (path, counts) in launches.items():
@@ -1130,8 +1228,8 @@ def main() -> int:
                      f"the {path} path launched the {name} kernel")
     total = {name: sum(c[name] for _, c in launches.values())
              for name in KERNEL_INFO}
-    say(f"launches over (a)-(g): {json.dumps(total)} (hashed path after "
-        f"(a): {json.dumps(a)}, after (b): {json.dumps(b)})")
+    say(f"launches over (a)-(g) and phase 5: {json.dumps(total)} (hashed "
+        f"path after (a): {json.dumps(a)}, after (b): {json.dumps(b)})")
 
     kernels_line = {"kernels": []}
     for name, (fn, src, replaces) in KERNEL_INFO.items():

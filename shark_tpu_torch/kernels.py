@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
-The device kernels of the classify paths are CUDA C++ for sm_90a with a
-plain C interface. They are compiled with nvcc into one shared library,
+The device kernels of the classify paths, and of the two experiments in
+shark_tpu_torch/experiments/, are CUDA C++ for sm_90a with a plain C
+interface. They are compiled with nvcc into one shared library,
 build/shark_tpu_torch/libshark_kernels.so at the repository root, at first
 use and again whenever a source is newer than the library, and loaded with
 ctypes. Every pointer and the stream cross as c_void_p. Each C entry point
@@ -41,9 +42,13 @@ NVCC_FLAGS = [
 # Bloom filter's routing round (route, owner probe, return; all three in
 # csrc/route.cu). The finish takes two launches of its source (a
 # batch-wide pass, then one block per read) and the route three (count,
-# scan, scatter); each counts as one kernel.
+# scan, scatter); each counts as one kernel. The last two are the
+# experiment kernels (the per-probe tile gather and the resident-table
+# bucket match of shark_tpu_torch/experiments/), which no classify path
+# launches.
 KERNELS = ("front", "probe", "finish", "pairs", "probe_xl", "classic",
-           "shard_route", "shard_probe", "shard_return")
+           "shard_route", "shard_probe", "shard_return", "gather_tiles",
+           "resident_match")
 
 _lib = None
 _lock = threading.Lock()
@@ -202,6 +207,10 @@ _SIGNATURES = {
     "shkk_shard_probe": [_VP, _L, _L, _VP, _L, _VP, _L, _VP, _VP],
     # back, Pn, total, n, cap, owner, slot, tagv, payv, stream
     "shkk_shard_return": [_VP, _L, _L, _I, _L, _VP, _VP, _VP, _VP, _VP],
+    # table_tiles, idx, n, out, stream
+    "shkk_gather_tiles": [_VP, _VP, _L, _VP, _VP],
+    # rows, want, table128, n, out, stream
+    "shkk_resident_match": [_VP, _VP, _VP, _L, _VP, _VP],
 }
 
 

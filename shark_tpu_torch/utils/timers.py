@@ -1,4 +1,4 @@
-"""Phase timing + throughput counters.
+"""Phase timing + throughput counters, and CUDA kernel timing.
 
 The reference prints "[shark/<tag>] Time elapsed <s>" at phase milestones
 (main.cpp:47-54); we keep that shape on stderr and add throughput counters.
@@ -6,8 +6,11 @@ The reference prints "[shark/<tag>] Time elapsed <s>" at phase milestones
 
 from __future__ import annotations
 
+import statistics
 import sys
 import time
+
+import torch
 
 
 class PhaseTimer:
@@ -32,3 +35,24 @@ class PhaseTimer:
             f"({count / dt:,.0f} {unit}/s)",
             file=self.stream,
         )
+
+
+def cuda_ms(fn, reps: int = 5, flush: bool = True) -> float:
+    """Median time of fn() in ms on the current CUDA device: CUDA events
+    around each of `reps` runs after one warm-up, with the 50 MB L2
+    overwritten before every run when `flush`."""
+    buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if flush \
+        else None
+    fn()
+    times = []
+    for _ in range(reps):
+        if buf is not None:
+            buf.fill_(1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)

@@ -9,7 +9,9 @@ of the front end and of the classic and xl probes, the xl geometries
 with and without a side table, reads shorter than k, the sharded Bloom
 filter's routing kernels at n in {1, 2, 8} shards, narrow and wide, with
 and without overflow (and reprobe from another thread on another
-stream), and whole pipelines on random workloads. Inputs are made with numpy from seeds; results must be equal,
+stream), whole pipelines on random workloads, and the two experiment
+kernels (P1, P2) at small, mid and default sizes, P1 at a row count that
+is not a power of two, their refusals and their stream. Inputs are made with numpy from seeds; results must be equal,
 bit for bit.
 
 On a machine with a card (and without jax, which tests/conftest.py
@@ -25,6 +27,7 @@ import torch
 from shark_tpu_torch.classify import hashed, step
 from shark_tpu_torch.classify.step import Classifier
 from shark_tpu_torch.config import SharkConfig
+from shark_tpu_torch.experiments import gather_tiles, resident_match
 from shark_tpu_torch.index.build import build_index
 from shark_tpu_torch.ops.kmers import encode_bytes
 from shark_tpu_torch.parallel import sharded_bf
@@ -473,3 +476,119 @@ def test_reprobe_on_another_thread_and_stream(cuda):
     th.join()
     assert clf.cap_mult > 1
     equal(out["got"], want)
+
+
+# ---------------------------------------------------------------------------
+# P1 (tile gather) and P2 (resident-table bucket match) against their
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _on(cuda, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays]
+
+
+def _tile_rows(table, idx):
+    return table.view(torch.int32)[idx.to(torch.int64)].view(torch.uint32)
+
+
+@pytest.mark.parametrize("n_log2,rows_log2", [(10, 12), (16, 22), (20, 27)],
+                         ids=["small", "mid", "default"])
+def test_gather_tiles_kernel(cuda, n_log2, rows_log2):
+    table, tiles, idx = _on(cuda, *gather_tiles.make_inputs(
+        n_log2, rows_log2, seed=n_log2))
+    got = gather_tiles.gather_tiles(tiles, idx)
+    equal([got], [gather_tiles.gather_tiles_plain(tiles, idx)])
+    equal([gather_tiles.rows_of_tiles(got, idx)], [_tile_rows(table, idx)])
+
+
+def test_gather_tiles_kernel_odd_rows(cuda):
+    """3001 tiles and 3 x 1024 probes, the first and last row included."""
+    rng = np.random.default_rng(3)
+    rows = 64 * 3001
+    table = rng.integers(0, 1 << 32, size=(rows, 2), dtype=np.uint64
+                         ).astype(np.uint32)
+    idx = rng.integers(0, rows, size=3 * gather_tiles.CHUNK).astype(np.int32)
+    idx[:2] = [0, rows - 1]
+    table, idx = _on(cuda, table, idx)
+    tiles = table.view(-1, 128)
+    got = gather_tiles.gather_tiles(tiles, idx)
+    equal([got], [gather_tiles.gather_tiles_plain(tiles, idx)])
+    equal([gather_tiles.rows_of_tiles(got, idx)], [_tile_rows(table, idx)])
+
+
+def _planted_match_inputs(n, lgB, seed):
+    """resident_match's harness inputs with probe 0's bucket matching in
+    all 8 slots (pays near 2^16: p1 << 16 wraps) and probe 1's in 3, after
+    5 tag-0 slots that carry its key."""
+    table, bucket, rest, valid = resident_match.build_inputs(n, lgB, seed)
+    s = np.arange(8, dtype=np.uint64)
+    valid[:2] = True
+    table[bucket[0]] = ((1 + s % 3) << 30 | np.uint64(rest[0]) << 16
+                        | (0xFFF0 + s)).astype(np.uint32)
+    table[bucket[1]] = (np.where(s < 5, 0, 2 << 30).astype(np.uint64)
+                        | np.uint64(rest[1]) << 16 | (100 + s)).astype(
+                            np.uint32)
+    return table, bucket, rest, valid
+
+
+@pytest.mark.parametrize("lgB,n", [(10, resident_match.CHUNK),
+                                   (14, resident_match.CHUNK * 40),
+                                   (19, resident_match.N_BATCH)],
+                         ids=["small", "mid", "default"])
+def test_resident_match_kernel(cuda, lgB, n):
+    host = _planted_match_inputs(n, lgB, seed=lgB)
+    args = _on(cuda, *resident_match.probe_inputs(*host))
+    got = resident_match.resident_match(*args)
+    equal([got], [resident_match.resident_match_plain(*args)])
+    equal([got], [resident_match.match_gather(*_on(cuda, *host))])
+    got32 = got.view(torch.int32)
+    assert int(got32[0, 0]) == 3 and int(got32[1, 1]) == 105 | (213 << 16)
+
+
+def test_experiment_wrappers_refuse(cuda):
+    tiles = torch.zeros((64, 128), dtype=torch.uint32, device=cuda)
+    idx = torch.zeros(gather_tiles.CHUNK, dtype=torch.int32, device=cuda)
+    rows = torch.zeros(resident_match.CHUNK, dtype=torch.int32, device=cuda)
+    want = torch.zeros(resident_match.CHUNK, dtype=torch.uint32, device=cuda)
+    t128 = torch.zeros((16, 128), dtype=torch.uint32, device=cuda)
+    for call, err in (
+        (lambda: gather_tiles.gather_tiles(tiles.view(torch.int32), idx),
+         TypeError),
+        (lambda: gather_tiles.gather_tiles(tiles, idx.long()), TypeError),
+        (lambda: gather_tiles.gather_tiles(tiles.cpu(), idx), ValueError),
+        (lambda: gather_tiles.gather_tiles(tiles, idx[:-8]), ValueError),
+        (lambda: resident_match.resident_match(rows.long(), want, t128),
+         TypeError),
+        (lambda: resident_match.resident_match(rows, want.view(torch.int32),
+                                               t128), TypeError),
+        (lambda: resident_match.resident_match(rows, want, t128.cpu()),
+         ValueError),
+        (lambda: resident_match.resident_match(rows[:-8], want[:-8], t128),
+         ValueError),
+    ):
+        with pytest.raises(err):
+            call()
+
+
+def test_experiment_kernels_launch_on_the_current_stream(cuda):
+    """Each kernel runs on the caller's current stream: its inputs are
+    written on a side stream after a long sleep there, so a kernel
+    launched anywhere else would read the stale ones."""
+    table, tiles, idx = _on(cuda, *gather_tiles.make_inputs(12, 16, seed=4))
+    host = _planted_match_inputs(resident_match.CHUNK * 4, 14, seed=4)
+    rows, want, t128 = _on(cuda, *resident_match.probe_inputs(*host))
+    stale_idx = torch.zeros_like(idx)
+    stale_want = torch.full_like(want, resident_match.INVALID)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 27)
+        stale_idx.copy_(idx)
+        stale_want.copy_(want)
+        tiles_got = gather_tiles.gather_tiles(tiles, stale_idx)
+        match_got = resident_match.resident_match(rows, stale_want, t128)
+    side.synchronize()
+    equal([tiles_got], [gather_tiles.gather_tiles_plain(tiles, idx)])
+    equal([match_got], [resident_match.resident_match_plain(rows, want,
+                                                            t128)])

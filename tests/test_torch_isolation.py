@@ -48,7 +48,9 @@ def test_import_leaves_out_jax_and_shark_tpu():
         "import sys, shark_tpu_torch, shark_tpu_torch.cli, "
         "shark_tpu_torch.convert, shark_tpu_torch.kernels, "
         "shark_tpu_torch.classify.hashed, shark_tpu_torch.classify.table_cache, "
-        "shark_tpu_torch.parallel.mesh, shark_tpu_torch.parallel.sharded_bf; "
+        "shark_tpu_torch.parallel.mesh, shark_tpu_torch.parallel.sharded_bf, "
+        "shark_tpu_torch.experiments.gather_tiles, "
+        "shark_tpu_torch.experiments.resident_match; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'shark_tpu')); print(bad); sys.exit(bool(bad))"
     )
@@ -118,6 +120,7 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
     from shark_tpu_torch import kernels
 
     from shark_tpu_torch.classify import hashed
+    from shark_tpu_torch.experiments import gather_tiles, resident_match
 
     kernels.LAUNCHES.reset()
     step.extract_pairs(torch.zeros(4, dtype=torch.int32),
@@ -138,6 +141,12 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
     reply = sharded_bf.shard_probe(send.transpose(0, 1).contiguous(),
                                    rows.view(1, 4, 2), rows.view(1, 4, 2))
     sharded_bf.shard_return(reply, owner, slot)
+    gather_tiles.gather_tiles(torch.zeros((1, 128), dtype=torch.uint32),
+                              torch.zeros(gather_tiles.CHUNK, dtype=torch.int32))
+    resident_match.resident_match(
+        torch.zeros(resident_match.CHUNK, dtype=torch.int32),
+        torch.zeros(resident_match.CHUNK, dtype=torch.uint32),
+        torch.zeros((1, 128), dtype=torch.uint32))
     assert kernels.LAUNCHES.snapshot() == {n: 0 for n in kernels.KERNELS}
 
 
