@@ -27,7 +27,14 @@ Phases, each printing its lines; any failure exits non-zero:
    that every source overflows, and the router alone at a > 2^36-bit
    filter on synthetic addresses (its owners against a numpy uint64
    oracle); the 8-shard classifier's verdicts on a 65536-read batch must
-   equal the classic classifier's;
+   equal the classic classifier's. The record holds each kernel at
+   B = 65536, L = 104, and the homolog index's kernels (K1-K4) also at
+   the CLI's batch B = 8192; for the front end and the finish it adds
+   their device time from torch.profiler beside the CUDA-event time,
+   which also holds the wrapper's host work. Each batch prints how many
+   reads took the finish's block path, held to finish_heavy_reads_plain.
+   The library forms of the owner probe and the return compute their
+   whole function (indices, every slot or window, zeros on a miss);
 4. end to end through the CLI entry point (shark_tpu_torch.cli.main, what
    `python -m shark_tpu_torch` runs) with the default flags
    -k 17 -c 0.6 -b 1, on workloads made with numpy from a seed at
@@ -90,6 +97,7 @@ TXOME_GENES = 50_000
 N_CPU_CHECK, N_ORACLE_CHECK = 20_000, 2_000
 SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
 RECORD_SHAPE = (65536, 104)  # bench.py's batch: the shape the record holds
+CLI_SHAPE = (8192, 104)  # the CLI's batch: K1-K4 are recorded here too
 REPS = 7
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM. For the
@@ -282,6 +290,26 @@ def bound(nbytes: float, ops: float):
     return (tb, "bytes", tb, to) if tb >= to else (to, "operations", tb, to)
 
 
+def device_ms(fn, reps=REPS):
+    """Device time of one fn() call, L2 warm: the self device time of
+    every kernel and memset that torch.profiler records over `reps` calls,
+    over reps; None when the profiler records no device time. Beside the
+    CUDA-event time, which also holds the wrapper's host work when that
+    is longer than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    return us / reps / 1e3 if us > 0 else None
+
+
 def same(name, got, want):
     """Exact equality of integer outputs; returns max |got - want| (0)."""
     err = 0
@@ -308,14 +336,15 @@ def pair_cap(packed, B, W):
 
 
 def check_kernels(clf, genes, shapes, record_shape, timer):
-    """Phase 3. Returns the per-kernel record at record_shape."""
+    """Phase 3. Returns the per-kernel records at record_shape and at
+    CLI_SHAPE."""
     from shark_tpu_torch.classify import hashed, step
 
     dix, hmeta = clf.dix, clf._hmeta
     dev = clf.device
     rng = np.random.default_rng(2024)
     W = clf.max_winners
-    record = {}
+    record, cli_record = {}, {}
     for B, L in shapes:
         meta, thresh = clf._geometry(L)
         codes = torch.from_numpy(codes_for_shape(rng, genes, B, L)).to(dev)
@@ -334,6 +363,7 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
             plain_ms=timer(lambda: step.front_end_plain(packed, vmask, meta)),
             library_ms=None,
             bound=bound(nbytes, n * 50),
+            device_ms=device_ms(lambda: step.front_end(packed, vmask, meta)),
         )
         idx_hi, idx_lo, win_valid, length = k1
 
@@ -361,8 +391,15 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
                    max_winners=W, L=L, has_rows=hmeta.has_rows)
         args3 = (tagv, payv, length, thresh)
         k3 = step.finish_from_tags(*args3, **kw3)
+        n_block = step.finish_heavy_count()
         e3 = same("finish_from_tags", k3[:3],
                   step.finish_from_tags_plain(*args3, **kw3)[:3])
+        want_block = int(step.finish_heavy_reads_plain(
+            tagv, payv, rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta, L=L,
+            has_rows=hmeta.has_rows).sum())
+        need(n_block == want_block,
+             f"finish: {n_block} reads took the block path, the plain "
+             f"classification says {want_block}")
         t = tagv.to(torch.int64)
         nk = ((t == 1) | (t == 2)).sum(1) + (t == 2).sum(1)
         if hmeta.has_rows:
@@ -388,6 +425,7 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
             plain_ms=timer(lambda: step.finish_from_tags_plain(*args3, **kw3)),
             library_ms=None,
             bound=bound(nbytes, ops),
+            device_ms=device_ms(lambda: step.finish_from_tags(*args3, **kw3)),
         )
         grp = int(((k3[0] >> 23) & 1).sum())
 
@@ -415,10 +453,13 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
         )
         say_rows(rows, B, L)
         say(f"kernel batch B={B} L={L}: group verdicts {grp}, "
-            f"winner pairs {total} (cap {cap})")
+            f"winner pairs {total} (cap {cap}); the finish's block path "
+            f"took {n_block} reads (warp path {B - n_block})")
         if (B, L) == record_shape:
             record = rows
-    return record
+        if (B, L) == CLI_SHAPE:
+            cli_record = rows
+    return record, cli_record
 
 
 def say_rows(rows, B, L):
@@ -428,11 +469,15 @@ def say_rows(rows, B, L):
 
 def say_row(name, r, where):
     lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    dev = ""
+    if "device_ms" in r:
+        dev = "  device_ms=" + ("not measured" if r["device_ms"] is None
+                                else f"{r['device_ms']:.4f}")
     say(f"kernel {KERNEL_INFO[name][0]:<17} {where} "
         f"exact (max|err| {r['err']})  kernel_ms={r['ms']:.4f}  "
         f"plain_ms={r['plain_ms']:.4f}  library_ms={lib}  "
         f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}; bytes "
-        f"{r['bound'][2]:.4f}, operations {r['bound'][3]:.4f})")
+        f"{r['bound'][2]:.4f}, operations {r['bound'][3]:.4f}){dev}")
 
 
 def xl_geometry(clf):
@@ -586,12 +631,30 @@ def route_rows(windows, dix, n, wps, wide, cap, timer):
     bfr = dix.bf_rank.view(torch.int32).reshape(-1, 2)
     payr = dix.pay.view(torch.int32).reshape(-1, 2)
     n_slots = recv.numel() // 2
+    recv32 = recv.view(torch.int32)
+    hh = h.to(torch.int32)
+
+    def probe_library():
+        """The whole of K7b in PyTorch's gathers: every slot's word row,
+        its hit and rank, the pay row, zeros on a miss or an empty slot."""
+        word, bit = recv32[..., 0], recv32[..., 1] & 31
+        ok = (word >= 0) & (word < wps)
+        w = bfr[(hh * wps + torch.where(ok, word, 0)).long()].long() \
+            & 0xFFFFFFFF
+        below = w[..., 0] & ((1 << bit.long()) - 1)
+        rank = w[..., 1] + step._popcount32(below)
+        hit = ok & (((w[..., 0] >> bit) & 1) == 1) & (rank < rows_max)
+        prow = payr[(hh * rows_max + torch.where(hit, rank, 0)).long()]
+        return torch.where(hit[..., None], prow, 0).view(torch.uint32)
+
+    same("shard_probe library form", [probe_library()], [k7b])
+
     rows["shard_probe"] = dict(
         err=eb,
         ms=timer(lambda: sb.shard_probe(recv, dix.bf_rank, dix.pay)),
         plain_ms=timer(lambda: sb.shard_probe_plain(recv, dix.bf_rank,
                                                     dix.pay)),
-        library_ms=timer(lambda: (bfr[widx], payr[ridx])),
+        library_ms=timer(probe_library),
         bound=bound(n_slots * 16 + int(torch.unique(widx).numel()) * 8
                     + int(torch.unique(ridx).numel()) * 8,
                     int(routed.sum()) * 12),
@@ -602,15 +665,24 @@ def route_rows(windows, dix, n, wps, wide, cap, timer):
     k7c = sb.shard_return(back, owner, slot)
     ec = same("shard_return", k7c, sb.shard_return_plain(back, owner, slot))
     ok = slot >= 0
-    src = torch.arange(S, device=dev).view(S, 1, 1).expand_as(slot)
-    flat = ((src * n + owner.to(torch.int64)) * cap + slot)[ok]
+    src = torch.arange(S, device=dev, dtype=torch.int32).view(S, 1, 1)
     backr = back.view(torch.int32).reshape(-1, 2)
     n_routed = int(ok.sum())
+
+    def return_library():
+        """K7c's gather in PyTorch, over every window: the flat reply
+        index from (owner, slot), the reply row, zeros where the window
+        has no slot (K7c also decodes the pay words)."""
+        has = slot >= 0
+        flat = (src * n + torch.where(has, owner, 0)) * cap \
+            + torch.where(has, slot, 0)
+        return torch.where(has[..., None], backr[flat.long()], 0)
+
     rows["shard_return"] = dict(
         err=ec,
         ms=timer(lambda: sb.shard_return(back, owner, slot)),
         plain_ms=timer(lambda: sb.shard_return_plain(back, owner, slot)),
-        library_ms=timer(lambda: backr[flat]),
+        library_ms=timer(return_library),
         bound=bound(nw * 8 + n_routed * 8 + nw * 8, nw * 6),
     )
     stats = dict(windows=nw, routed=n_routed, cap=cap,
@@ -1136,7 +1208,8 @@ def main() -> int:
     shapes = [(8192, 104)] if args.quick else SHAPES
     record_shape = shapes[0] if args.quick else RECORD_SHAPE
     timer = functools.partial(cuda_ms, reps=REPS)
-    record = check_kernels(clf, hgenes, shapes, record_shape, timer)
+    record, cli_record = check_kernels(clf, hgenes, shapes, record_shape,
+                                       timer)
     del clf
 
     # ... and K5/K6 on the transcriptome's index, which the C++ engine
@@ -1234,13 +1307,23 @@ def main() -> int:
     kernels_line = {"kernels": []}
     for name, (fn, src, replaces) in KERNEL_INFO.items():
         r = record[name]
-        kernels_line["kernels"].append({
+        row = {
             "name": fn, "route": "cuda", "source": src, "replaces": replaces,
             "launches": total[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
-        })
+        }
+        if "device_ms" in r:
+            row["device_ms"] = r["device_ms"]
+        if name in cli_record:  # the same kernel at the CLI's batch
+            c = cli_record[name]
+            row["cli_batch"] = {
+                "B": CLI_SHAPE[0], "L": CLI_SHAPE[1], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                "bound_by": c["bound"][1], "library_ms": c["library_ms"],
+                "device_ms": c.get("device_ms")}
+        kernels_line["kernels"].append(row)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -1248,7 +1331,8 @@ def main() -> int:
                        "bounds_bytes_ops_ms": {
                            KERNEL_INFO[n][0]: record[n]["bound"][2:]
                            for n in KERNEL_INFO},
-                       "record_shape": RECORD_SHAPE, "launches": launches,
+                       "record_shape": RECORD_SHAPE,
+                       "cli_shape": CLI_SHAPE, "launches": launches,
                        "e2e": e2e_stats}, f, indent=1)
     say(f"done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps(kernels_line))

@@ -36,6 +36,7 @@ shark_tpu's, so both packages build identical tables.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -535,6 +536,15 @@ def _mod_size_params(size_bits: int) -> Tuple[int, int]:
     )
 
 
+def _fastmod_magic(d: int) -> int:
+    """The 64-bit magic number with which the front end kernel reduces a
+    32-bit hash word modulo d (1 <= d < 2**32), mod_mode 2:
+    a % d == ((magic * a mod 2**64) * d) >> 64 for every 32-bit a
+    (Lemire, Kaser and Kurz, "Faster remainder by direct computation",
+    2019). For d = 1 the magic wraps to 0, which gives 0."""
+    return (((1 << 64) - 1) // d + 1) & ((1 << 64) - 1)
+
+
 def _mod_size(h: torch.Tensor, size_bits: int):
     """u64 hash bits (int64) -> (idx_hi, idx_lo) as int64 in [0, 2**32)."""
     mode, arg = _mod_size_params(size_bits)
@@ -604,18 +614,26 @@ def front_end(packed: torch.Tensor, vmask: torch.Tensor, meta: "StaticMeta"):
         raise ValueError(f"vmask shape {tuple(vmask.shape)} != {(B, L // 8)}")
     if not packed.is_cuda:
         return front_end_plain(packed, vmask, meta)
+    if L % 8 or not 8 <= L <= 16384:
+        raise ValueError(
+            f"the front end kernel takes 8 <= L <= 16384, L % 8 == 0 (L = {L})")
     dev = packed.device
     kernels.require(packed, "packed", torch.uint8, 2, dev)
     kernels.require(vmask, "vmask", torch.uint8, 2, dev)
     mode, arg = _mod_size_params(meta.size_bits)
+    magic = _fastmod_magic(arg) if mode == 2 else 0
     Ls = L - min(meta.k - 1, L - 1)
-    idx_hi = torch.empty((B, Ls), dtype=torch.uint32, device=dev)
-    idx_lo = torch.empty((B, Ls), dtype=torch.uint32, device=dev)
-    win_valid = torch.empty((B, Ls), dtype=torch.bool, device=dev)
-    length = torch.empty((B,), dtype=torch.int32, device=dev)
+    # the four outputs are views of one allocation
+    n = B * Ls
+    words = torch.empty((2 * n + B + (n + 3) // 4,), dtype=torch.int32,
+                        device=dev)
+    idx_hi = words[:n].view(torch.uint32).view(B, Ls)
+    idx_lo = words[n: 2 * n].view(torch.uint32).view(B, Ls)
+    length = words[2 * n: 2 * n + B]
+    win_valid = words[2 * n + B:].view(torch.bool)[:n].view(B, Ls)
     lib = kernels.lib()
     rc = lib.shkk_front(
-        packed.data_ptr(), vmask.data_ptr(), B, L, meta.k, mode, arg,
+        packed.data_ptr(), vmask.data_ptr(), B, L, meta.k, mode, arg, magic,
         idx_hi.data_ptr(), idx_lo.data_ptr(), win_valid.data_ptr(),
         length.data_ptr(), kernels.stream(dev),
     )
@@ -765,29 +783,87 @@ def finish_from_tags_plain(tagv, payv, length, thresh, *, rows3, ext_mat,
     packed, winners, best_cov = _score_keys(
         torch.cat(keys, dim=1), meta.n_genes, length, thresh, row_ovf,
         **score)
-    if has_rows and rb:
-        gid = p >> rb
-        gmax = torch.where(is_row, gid, torch.full_like(gid, -1)).max(dim=1)
-        gmin = torch.where(is_row, gid, torch.full_like(gid, 0x7FFFFFFF))
-        any_row = is_row.any(dim=1)
-        pure = (any_row & ~direct.any(dim=1)
-                & (gmax.values == gmin.min(dim=1).values))
-        n_fix = int((any_row & ~pure).sum())
-        if n_fix <= fix_caps(B)[1] and bool(pure.any()):
-            sel = torch.nonzero(pure).flatten()
-            gkeys = torch.where(is_row[sel],
-                                (meta.n_genes << pb) | pos[sel], none[sel])
-            gp, gw, gc = _score_keys(
-                gkeys, meta.n_genes + 1, length[sel], thresh,
-                row_ovf[sel], **score)
-            emit = (gp >> PACK_EMIT_SHIFT) & 1
-            packed[sel] = (
-                torch.clamp(gmax.values[sel], min=0).to(torch.int32)
-                | (1 << PACK_NW_SHIFT) | (emit << PACK_EMIT_SHIFT)
-                | (1 << PACK_GRP_SHIFT))
-            winners[sel] = gw
-            best_cov[sel] = gc
+    grp, gmax = _group_reads(t, p, has_rows, rb)
+    if bool(grp.any()):
+        sel = torch.nonzero(grp).flatten()
+        gkeys = torch.where(is_row[sel],
+                            (meta.n_genes << pb) | pos[sel], none[sel])
+        gp, gw, gc = _score_keys(
+            gkeys, meta.n_genes + 1, length[sel], thresh,
+            row_ovf[sel], **score)
+        emit = (gp >> PACK_EMIT_SHIFT) & 1
+        packed[sel] = (
+            torch.clamp(gmax[sel], min=0).to(torch.int32)
+            | (1 << PACK_NW_SHIFT) | (emit << PACK_EMIT_SHIFT)
+            | (1 << PACK_GRP_SHIFT))
+        winners[sel] = gw
+        best_cov[sel] = gc
     return packed, winners, best_cov, length
+
+
+def _group_reads(t, p, has_rows, rb):
+    """(bool[B]: the pure reads that take their GROUP verdict, int64[B]:
+    each read's largest group id over its row windows, or -1) of int64 tags
+    and payloads. Group verdicts need group ids in the payloads (rb > 0)
+    and a batch with at most FIX_CAP2 impure row-hitting reads."""
+    B = t.shape[0]
+    if not (has_rows and rb):
+        return torch.zeros((B,), dtype=torch.bool, device=t.device), None
+    is_row = t == TAG_ROW
+    direct = (t == TAG_D1) | (t == TAG_D2)
+    gid = p >> rb
+    gmax = torch.where(is_row, gid, torch.full_like(gid, -1)).max(dim=1).values
+    gmin = torch.where(is_row, gid, torch.full_like(gid, 0x7FFFFFFF))
+    any_row = is_row.any(dim=1)
+    pure = any_row & ~direct.any(dim=1) & (gmax == gmin.min(dim=1).values)
+    if int((any_row & ~pure).sum()) > fix_caps(B)[1]:
+        pure = torch.zeros_like(pure)
+    return pure, gmax
+
+
+# Keys a read may have on the CUDA finish's warp path (csrc/finish.cu
+# kWarpCap); a read with more takes the block path.
+FINISH_WARP_CAP = 256
+
+
+def finish_heavy_reads_plain(tagv, payv, *, rows3, ext_mat, meta, L,
+                             has_rows):
+    """bool[B]: the reads that the CUDA finish hands to its block path.
+    A read goes there when it has more than FINISH_WARP_CAP keys (direct
+    genes, the inline genes of its rows, or one pseudo-gene key per row
+    window when it takes its group verdict), or when, without that group
+    verdict, one of its rows is past the inline width and the index has an
+    extension table. The verdicts are the same on either path; this is
+    what the card tests and chip_smoke.py hold the kernel's count to."""
+    t = tagv.to(torch.int64)
+    p = payv.to(torch.int64)
+    nk = ((t == TAG_D1) | (t == TAG_D2)).sum(dim=1) + (t == TAG_D2).sum(dim=1)
+    if not has_rows:
+        return nk > FINISH_WARP_CAP
+    D = meta.degree3
+    rb = meta.rows_bits
+    is_row = t == TAG_ROW
+    r3 = rows3.to(torch.int64)
+    ridx = torch.clamp(p & ((1 << rb) - 1) if rb else p, max=r3.shape[0] - 1)
+    deg = torch.where(is_row, r3[torch.where(is_row, ridx, 0), 0] & 0xFFFF, 0)
+    if ext_mat is not None and meta.ext3_w > 0:
+        needy = (is_row & (deg > D)).any(dim=1)
+        inline = torch.where(deg > D, 0, deg)
+    else:
+        needy = torch.zeros_like(is_row[:, 0])
+        inline = torch.clamp(deg, max=D)
+    grp, _ = _group_reads(t, p, has_rows, rb)
+    nk = nk + torch.where(grp, is_row.sum(dim=1), inline.sum(dim=1))
+    return (nk > FINISH_WARP_CAP) | (needy & ~grp)
+
+
+_FINISH_STATE = threading.local()
+
+
+def finish_heavy_count() -> int:
+    """The number of reads that the calling thread's last CUDA finish sent
+    to its block path (synchronises with the card)."""
+    return int(_FINISH_STATE.work[1])
 
 
 def finish_from_tags(
@@ -805,8 +881,8 @@ def finish_from_tags(
 ):
     """K3: (tag, payload) per window -> (packed i32[B], winners i32[B, W],
     best_cov i32[B], length i32[B]). CUDA tensors run csrc/finish.cu (a
-    batch-wide group pass, then one block per read); CPU tensors the plain
-    version."""
+    batch-wide group pass, one warp per read, then a block per read too
+    heavy for a warp); CPU tensors the plain version."""
     if not tagv.is_cuda:
         return finish_from_tags_plain(
             tagv, payv, length, thresh, rows3=rows3, ext_mat=ext_mat,
@@ -829,51 +905,53 @@ def finish_from_tags(
         kernels.require(ext_mat, "ext_mat", torch.uint16, 2, dev)
         if ext_mat.shape[1] != ext_w:
             raise ValueError("ext_mat width != ext3_w")
-    packed = torch.empty((B,), dtype=torch.int32, device=dev)
-    winners = torch.empty((B, W), dtype=torch.int32, device=dev)
-    best_cov = torch.empty((B,), dtype=torch.int32, device=dev)
+    # the outputs are views of one allocation, and so is the kernel's
+    # work, at these int32 offsets: its counters (n_fix of the group pass,
+    # the block path's list length; zeroed by the kernel's entry point) at
+    # 0, the list at 2, each read's largest group id at B + 2 and its group
+    # flags (bytes) at 2B + 2
+    out = torch.empty((B * (W + 2),), dtype=torch.int32, device=dev)
+    packed, best_cov = out[:B], out[B: 2 * B]
+    winners = out[2 * B:].view(B, W)
+    work = torch.empty((2 + 2 * B + (B + 3) // 4,), dtype=torch.int32,
+                       device=dev)
+    counters = work.data_ptr()
     groups = bool(has_rows and meta.rows_bits)
-    lib = kernels.lib()
-    stream = kernels.stream(dev)
-    flags = gmax = n_fix = None
-    if groups:
-        flags = torch.empty((B,), dtype=torch.uint8, device=dev)
-        gmax = torch.empty((B,), dtype=torch.int32, device=dev)
-        n_fix = torch.zeros((1,), dtype=torch.int32, device=dev)
-        rc = lib.shkk_finish_groups(
-            tagv.data_ptr(), payv.data_ptr(), B, Ls, meta.rows_bits,
-            flags.data_ptr(), gmax.data_ptr(), n_fix.data_ptr(), stream)
-        kernels.check(rc, "finish")
-    # keys of one read: <= max(D, 2) per window plus the extension genes
+    # keys of one block-path read: <= max(D, 2) per window plus the
+    # extension genes, and at least the 256 keys its warps sort at a time
     has_ext = has_rows and ext_mat is not None and ext_w > 0
     kmax = max(D if has_rows else 0, 2) * Ls + (EXT_CAP2 * ext_w if has_ext else 0)
-    key_cap = 1 << max(0, (kmax - 1).bit_length())
-    scratch = None
+    key_cap = max(_FINISH_CHUNK, 1 << max(0, (kmax - 1).bit_length()))
+    # the block path's grid (the kernel trims it to what fits on the card)
     grid = B
+    scratch = None
     if key_cap * 8 > _FINISH_SMEM_MAX:
         # wide geometries: keys in a global scratch slice per block, with
-        # a grid of a few blocks per SM looping over the reads
+        # a grid of a few blocks per SM looping over the list
         grid = min(B, _FINISH_SCRATCH_GRID)
         scratch = torch.empty((grid, 2 * key_cap), dtype=torch.uint32,
                               device=dev)
-    rc = lib.shkk_finish_reads(
+    rc = kernels.lib().shkk_finish(
         tagv.data_ptr(), payv.data_ptr(), length.data_ptr(),
         thresh.data_ptr(), rows3.data_ptr(), rows3.shape[0], rows3.shape[1],
         D, kernels.ptr(ext_mat if has_ext else None), ext_w if has_ext else 0,
         B, Ls, L, meta.k, meta.pos_bits, meta.n_genes, meta.rows_bits, W,
-        int(has_rows), int(groups), kernels.ptr(flags), kernels.ptr(gmax),
-        kernels.ptr(n_fix), fix_caps(B)[1], key_cap, grid,
-        kernels.ptr(scratch), packed.data_ptr(), winners.data_ptr(),
-        best_cov.data_ptr(), stream)
+        int(has_rows), int(groups), counters + 4 * (2 * B + 2),
+        counters + 4 * (B + 2), counters, fix_caps(B)[1], key_cap, grid,
+        kernels.ptr(scratch), counters + 8, packed.data_ptr(),
+        winners.data_ptr(), best_cov.data_ptr(), kernels.stream(dev))
     kernels.check(rc, "finish")
     kernels.LAUNCHES.add("finish")
+    _FINISH_STATE.work = work
     return packed, winners, best_cov, length
 
 
-# shared memory the finish's keys may take per block (keys + prefix sums,
-# 8 bytes a key), and the grid of its global-scratch mode
+# shared memory the block path's keys may take per block (keys + scores,
+# 8 bytes a key), the grid of its global-scratch mode, and the keys each of
+# its warps sorts in registers (csrc/finish.cu kChunk)
 _FINISH_SMEM_MAX = 96 * 1024
 _FINISH_SCRATCH_GRID = 1056
+_FINISH_CHUNK = 256
 
 
 # ---------------------------------------------------------------------------

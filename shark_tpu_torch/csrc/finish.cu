@@ -21,32 +21,61 @@
 // n_fix <= FIX_CAP2 gives every pure read (all hits are rows of one gene
 // set) the GROUP verdict of its set scored as one pseudo gene (id
 // n_genes), and every other read its full verdict; a batch past FIX_CAP2
-// gives every read its full verdict. So the finish is two launches of
-// this source: a batch-wide pass that classifies each read and counts
-// n_fix on the device, then one block per read that reads n_fix.
+// gives every read its full verdict.
 //
-// Bound: bytes for the key-light reads of a panel (each read's 8 bytes
-// per window of (tag, payload) in, 12 + 4W bytes of verdict out); the
-// per-read work is a shared-memory bitonic sort of the read's keys
-// (next power of two of its key count) and a few block scans, ~log^2
-// passes with a barrier each, which bounds it in practice. Keys live in
-// dynamic shared memory when the geometry's key bound fits, else in a
-// global scratch slice per block, with the same code.
+// Bound: operations, the sort of each read's keys (chip_smoke.py counts
+// nk log2 nk + 10 nk a read). The bytes (8 per window in, 12 + 4W per
+// read out, the rows touched) take less time.
+//
+// The first design gave every read a block of 128 threads: a panel read
+// has 60-176 keys, so most threads idled, and each read paid 40-50
+// __syncthreads (a bitonic sort with a barrier per pass, block scans of 3
+// barriers each) with key slots taken by shared atomics and two binary
+// searches per key for its segment head. This design sizes the work to
+// the read, after the same group pass (one warp per read, counting n_fix
+// on the device before any verdict):
+// - warp pass, one warp per read: it builds the keys 32 windows at a
+//   time, a shuffle scan of the per-window key counts giving each lane
+//   its slots in a per-warp shared slice, and moves them to registers
+//   (key i = register i / 32 of lane i % 32, the next power of two of nk,
+//   32 to kWarpCap = 256 keys). Keys are built in column order, so keys
+//   that already ascend (one gene: most reads of a panel) skip the sort;
+//   the rest take a register bitonic sort (__shfl_xor_sync across lanes,
+//   compare-exchange within a lane). Then one pass of shuffle scans per
+//   register: the coverage prefix sum, and a max-scan of each segment's
+//   head (its prefix and index packed in one int) in place of the binary
+//   search; best is a warp max, and the winners' ranks are ballots and
+//   popcounts. No block barrier;
+// - block path for the rest: a read past kWarpCap keys, or with a row past
+//   the inline width while an extension table exists, is appended by its
+//   warp to a list on the device (atomic counter, index array). The first
+//   design's block code runs on that list alone, a persistent grid (as
+//   many blocks as fit on the card at once) that reads the list's length
+//   on the device (no host sync), with 256 threads, shift arithmetic in
+//   the sort, and a block max-scan for the segment heads in place of the
+//   binary searches. Its keys live in dynamic shared memory when the
+//   geometry's key bound fits, else in a global scratch slice per block.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // block path
+constexpr int kChunkLog2 = 8;   // keys a warp of the block path sorts
+constexpr int kChunk = 1 << kChunkLog2;  // in registers (step.py key_cap)
+constexpr int kWarpCap = 256;  // step.FINISH_WARP_CAP
+constexpr int kLightWarps = 4;  // warps per block of the warp path
+constexpr u32 kFull = 0xffffffffu;
+constexpr u32 kNoKey = 0xffffffffu;  // sorts after every key (keys < 2^31)
 constexpr int kExtCap2 = 16;  // step.py EXT_CAP2
 constexpr u32 kTagD1 = 1, kTagD2 = 2, kTagRow = 3;
 constexpr int kPackNwShift = 16, kPackEmitShift = 21, kPackOvfShift = 22,
               kPackGrpShift = 23, kNwSat = 31;
 
-// flags of the batch-wide pass
+// flags of the group pass
 constexpr uint8_t kPure = 1, kNeedFix = 2;
 
-// One warp per read: any direct hit, any row hit, min and max group id
-// over row hits.
+// The group pass, one warp per read: any direct hit, any row hit, min and
+// max group id over row hits; n_fix counts the impure row-hitting reads.
 __global__ void groups_kernel(const u32* __restrict__ tagv,
                               const u32* __restrict__ payv, int B, int Ls,
                               int rb, uint8_t* __restrict__ flags,
@@ -69,12 +98,12 @@ __global__ void groups_kernel(const u32* __restrict__ tagv,
       gmax = max(gmax, g);
     }
   }
-  any_direct = __any_sync(0xffffffffu, any_direct);
-  any_row = __any_sync(0xffffffffu, any_row);
+  any_direct = __any_sync(kFull, any_direct);
+  any_row = __any_sync(kFull, any_row);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    gmin = min(gmin, __shfl_xor_sync(0xffffffffu, gmin, o));
-    gmax = max(gmax, __shfl_xor_sync(0xffffffffu, gmax, o));
+    gmin = min(gmin, __shfl_xor_sync(kFull, gmin, o));
+    gmax = max(gmax, __shfl_xor_sync(kFull, gmax, o));
   }
   if (lane == 0) {
     const bool pure = any_row && !any_direct && gmax == gmin;
@@ -96,12 +125,14 @@ struct ReadsArgs {
   int ext_w;
   int B, Ls, L, k, pos_bits, n_genes, rb, W;
   int has_rows, groups;
-  const uint8_t* flags;
-  const int32_t* gmax;
-  const int32_t* n_fix;
+  const uint8_t* flags;  // per read: kPure, kNeedFix
+  const int32_t* gmax;   // per read: largest group id over its row windows
+  const int32_t* n_fix;  // impure row-hitting reads of the batch
   int fix_cap2;
   int key_cap;
-  u32* scratch;  // null: keys live in shared memory
+  u32* scratch;  // null: the block path's keys live in shared memory
+  int32_t* n_heavy;  // length of the block path's list
+  int32_t* heavy;    // the list: read indices
   int32_t* packed;
   int32_t* winners;
   int32_t* best_cov;
@@ -112,49 +143,387 @@ __device__ __forceinline__ u32 row_field(const u32* row, int i) {
   return (i & 1) ? (w >> 16) : (w & 0xFFFFu);
 }
 
-// cov * M + hits of the gene segment ending at sorted key i, or 0 when
-// key i is not the last of its gene. csum is the inclusive prefix sum of
-// the per-key coverage contributions.
-__device__ __forceinline__ int segment_score(const u32* keys,
-                                             const int32_t* csum, int nk,
-                                             int i, int pb, int M) {
-  const u32 gene = keys[i] >> pb;
-  if (i + 1 < nk && (keys[i + 1] >> pb) == gene) return 0;
-  const u32 head = gene << pb;  // the gene's first key is >= head
-  int lo = 0, hi = i;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < head) lo = mid + 1; else hi = mid;
-  }
-  const int cov = csum[i] - (lo > 0 ? csum[lo - 1] : 0);
-  return cov * M + (i - lo + 1);
+__device__ __forceinline__ const u32* row_of(const ReadsArgs& a, u32 pay) {
+  u32 ridx = a.rb ? (pay & ((1u << a.rb) - 1u)) : pay;
+  if (ridx >= (u32)a.n3) ridx = a.n3 - 1;
+  return a.rows3 + (u64)ridx * a.rows3_w;
 }
 
+__device__ __forceinline__ bool group_mode(const ReadsArgs& a) {
+  return a.groups && (*a.n_fix <= a.fix_cap2);
+}
+
+// The packed verdict, written once per read.
+__device__ __forceinline__ void write_verdict(const ReadsArgs& a, int b,
+                                              bool pure, int best, int nw,
+                                              int w0, int ovf) {
+  const int M = a.L + 1;
+  const int best_cov = best / M;
+  int len = a.length[b];
+  len = len < 0 ? 0 : (len > a.L ? a.L : len);
+  const int emit = best_cov >= a.thresh[len] ? 1 : 0;
+  int packed;
+  if (pure) {
+    packed = max(a.gmax[b], 0) | (1 << kPackNwShift) |
+             (emit << kPackEmitShift) | (1 << kPackGrpShift);
+  } else {
+    const int nw_sat = nw < kNwSat ? nw : kNwSat;
+    packed = max(w0, 0) | (nw_sat << kPackNwShift) |
+             (emit << kPackEmitShift) | (ovf << kPackOvfShift);
+  }
+  a.packed[b] = packed;
+  a.best_cov[b] = best_cov;
+}
+
+// ---------------------------------------------------------------------------
+// warp path
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int warp_incl_sum(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+__device__ __forceinline__ int warp_incl_max(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x = max(x, y);
+  }
+  return x;
+}
+
+// One bitonic merge level of 32 * NR keys held by a warp (key i in
+// key[i >> 5] of lane i & 31, at index base + i of the whole sequence):
+// the compare-exchange steps of the level `size`, strides from `top` down
+// to 1. Direction by the whole sequence's index, as the network has it.
+template <int NR>
+__device__ __forceinline__ void warp_bitonic_merge(u32 (&key)[NR], int lane,
+                                                   int base, int size,
+                                                   int top) {
+#pragma unroll
+  for (int stride = top; stride > 0; stride >>= 1) {
+    if (stride >= 32) {  // partner in another register of this lane
+      const int rs = stride >> 5;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        if (r & rs) continue;
+        const bool asc = ((base + r * 32) & size) == 0;
+        const u32 x = key[r], y = key[r | rs];
+        if ((x > y) == asc) {
+          key[r] = y;
+          key[r | rs] = x;
+        }
+      }
+    } else {  // partner in lane ^ stride, same register
+      const bool lower = (lane & stride) == 0;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const u32 x = key[r];
+        const u32 y = __shfl_xor_sync(kFull, x, stride);
+        const bool asc = ((base + r * 32 + lane) & size) == 0;
+        key[r] = (lower == asc) ? min(x, y) : max(x, y);
+      }
+    }
+  }
+}
+
+// The levels of a bitonic sort up to 32 * NR: sorts the warp's keys,
+// ascending when (base & 32 * NR) == 0, else descending.
+template <int NR>
+__device__ __forceinline__ void warp_bitonic_sort(u32 (&key)[NR], int lane,
+                                                  int base) {
+#pragma unroll
+  for (int size = 2; size <= 32 * NR; size <<= 1)
+    warp_bitonic_merge<NR>(key, lane, base, size, size >> 1);
+}
+
+// Key i + 1 beside key i = r * 32 + lane (kNoKey past the last register).
+template <int NR>
+__device__ __forceinline__ u32 next_key(const u32 (&key)[NR], int r,
+                                        int lane) {
+  const u32 down = __shfl_down_sync(kFull, key[r], 1);
+  const u32 wrap =
+      r + 1 < NR ? __shfl_sync(kFull, key[r + 1 < NR ? r + 1 : r], 0) : kNoKey;
+  return lane == 31 ? wrap : down;
+}
+
+// Sorts, scores and writes the verdict of one read whose nk keys are in
+// sk[0 .. nk), nk <= 32 * NR. Key i lives in key[i >> 5] of lane i & 31.
+template <int NR>
+__device__ __forceinline__ void finish_warp(const ReadsArgs& a, int b,
+                                            const u32* sk, int nk, bool pure,
+                                            int lane) {
+  u32 key[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int i = r * 32 + lane;
+    key[r] = i < nk ? sk[i] : kNoKey;
+  }
+
+  // ---- sort, unless the keys already ascend ----
+  // The keys were built in column order, so a read whose hits are all one
+  // gene (a pure read under its group verdict, most direct reads) needs
+  // no sort.
+  // (every lane shuffles for every register: no short-circuit around
+  // next_key, whose full-mask shuffles would wait for a lane that left)
+  bool ordered = true;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const u32 next = next_key<NR>(key, r, lane);
+    ordered = ordered && key[r] <= next;
+  }
+  if (!__all_sync(kFull, ordered)) warp_bitonic_sort<NR>(key, lane, 0);
+
+  const int pb = a.pos_bits;
+  const u32 pmask = (1u << pb) - 1u;
+  const int M = a.L + 1;
+  int32_t* win = a.winners + (long long)b * a.W;
+
+  // ---- one gene (most reads): a single segment, no scans ----
+  const u32 g_first = __shfl_sync(kFull, key[0], 0) >> pb;
+  bool one_gene = true;
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    one_gene = one_gene && (r * 32 + lane >= nk || (key[r] >> pb) == g_first);
+  if (__all_sync(kFull, one_gene)) {
+    int cov = 0;
+    u32 prev_last = 0;  // key r * 32 - 1
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int i = r * 32 + lane;
+      u32 prev = __shfl_up_sync(kFull, key[r], 1);
+      if (lane == 0) prev = prev_last;
+      if (i < nk) {
+        const int d = (int)(key[r] & pmask) - (int)(prev & pmask);
+        cov += i == 0 ? a.k : (d < a.k ? d : a.k);
+      }
+      prev_last = __shfl_sync(kFull, key[r], 31);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) cov += __shfl_xor_sync(kFull, cov, o);
+    const int nw = nk > 0 ? 1 : 0;
+    for (int q = nw + lane; q < a.W; q += 32) win[q] = -1;
+    if (lane == 0) {
+      if (nw && a.W > 0) win[0] = (int)g_first;
+      write_verdict(a, b, pure, nw ? cov * M + nk : 0, nw,
+                    nw ? (int)g_first : -1, 0);
+    }
+    return;
+  }
+
+  // ---- segments: coverage prefix, head by max-scan, score at the end ----
+  int score[NR];
+  int carry_sum = 0;   // coverage prefix through the previous register
+  int carry_head = 0;  // (prefix before the head) << 9 | head index
+  u32 prev_last = kNoKey;
+  int best = 0;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int i = r * 32 + lane;
+    const u32 x = key[r];
+    u32 prev = __shfl_up_sync(kFull, x, 1);
+    if (lane == 0) prev = prev_last;
+    const u32 next = next_key<NR>(key, r, lane);
+    const bool valid = i < nk;
+    const u32 g = x >> pb;
+    const bool start = valid && (i == 0 || (prev >> pb) != g);
+    const bool end = valid && (next >> pb) != g;
+    int contrib = 0;
+    if (valid) {
+      const int d = (int)(x & pmask) - (int)(prev & pmask);
+      contrib = start ? a.k : (d < a.k ? d : a.k);
+    }
+    const int cs = carry_sum + warp_incl_sum(contrib, lane);
+    const int head = max(carry_head,
+                         warp_incl_max(start ? ((cs - contrib) << 9) | i : 0,
+                                       lane));
+    score[r] = end ? (cs - (head >> 9)) * M + (i - (head & 511) + 1) : 0;
+    best = max(best, score[r]);
+    carry_sum = __shfl_sync(kFull, cs, 31);
+    carry_head = __shfl_sync(kFull, head, 31);
+    prev_last = __shfl_sync(kFull, x, 31);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    best = max(best, __shfl_xor_sync(kFull, best, o));
+
+  // ---- winners: segment ends scoring best, ascending gene ----
+  int nw = 0, w0 = -1;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const bool is_win = best > 0 && score[r] == best;
+    const u32 bal = __ballot_sync(kFull, is_win);
+    if (is_win) {
+      const int rank = nw + __popc(bal & ((1u << lane) - 1u));
+      if (rank < a.W) win[rank] = (int)(key[r] >> pb);
+    }
+    const u32 first = __shfl_sync(kFull, key[r], bal ? __ffs(bal) - 1 : 0);
+    if (w0 < 0 && bal) w0 = (int)(first >> pb);
+    nw += __popc(bal);
+  }
+  for (int q = nw + lane; q < a.W; q += 32) win[q] = -1;
+  if (lane == 0) write_verdict(a, b, pure, best, nw, w0, 0);
+}
+
+// The verdict of read b by its warp: the keys go into the warp's shared
+// slice sk in column order, then to registers; a read with more than
+// kWarpCap keys, or a row that needs its extension row, goes to the block
+// path's list instead. `pure`: the read takes its group verdict.
+__device__ __forceinline__ void warp_read(const ReadsArgs& a, int b,
+                                          bool pure, u32* sk, int lane) {
+  const u32* tg = a.tagv + (long long)b * a.Ls;
+  const u32* py = a.payv + (long long)b * a.Ls;
+  const int off = a.L - a.Ls;
+  const int pb = a.pos_bits;
+  const int D = a.D;
+  int nk = 0;
+  // the windows 32 at a time, the next 32 loaded while these are keyed
+  u32 tag_next = lane < a.Ls ? tg[lane] : 0u;
+  u32 pay_next = lane < a.Ls ? py[lane] : 0u;
+  for (int base = 0; base < a.Ls; base += 32) {
+    const int j = base + lane;
+    const u32 tag = tag_next, pay = pay_next;
+    const int jn = j + 32;
+    tag_next = jn < a.Ls ? tg[jn] : 0u;
+    pay_next = jn < a.Ls ? py[jn] : 0u;
+    int cnt = 0;
+    bool needy = false;
+    const u32* row = nullptr;
+    if (tag == kTagD1) {
+      cnt = 1;
+    } else if (tag == kTagD2) {
+      cnt = 2;
+    } else if (tag == kTagRow && a.has_rows) {
+      if (pure) {
+        cnt = 1;
+      } else {
+        row = row_of(a, pay);
+        const int deg = (int)row_field(row, 0);
+        if (a.ext_w == 0) {
+          cnt = deg < D ? deg : D;
+        } else if (deg > D) {
+          needy = true;
+        } else {
+          cnt = deg;
+        }
+      }
+    }
+    const int incl = warp_incl_sum(cnt, lane);
+    const int total = __shfl_sync(kFull, incl, 31);
+    if (__any_sync(kFull, needy) || nk + total > kWarpCap) {
+      if (lane == 0) a.heavy[atomicAdd(a.n_heavy, 1)] = b;
+      return;
+    }
+    const u32 pos = (u32)(off + j);
+    const int at = nk + incl - cnt;
+    if (tag == kTagD1 || tag == kTagD2) {
+      sk[at] = ((pay & 0xFFFFu) << pb) | pos;
+      if (cnt == 2) sk[at + 1] = ((pay >> 16) << pb) | pos;
+    } else if (pure) {
+      if (cnt) sk[at] = ((u32)a.n_genes << pb) | pos;
+    } else {
+      for (int d = 0; d < cnt; ++d)
+        sk[at + d] = (row_field(row, 1 + d) << pb) | pos;
+    }
+    nk += total;
+  }
+  __syncwarp();
+  if (nk <= 32) {
+    finish_warp<1>(a, b, sk, nk, pure, lane);
+  } else if (nk <= 64) {
+    finish_warp<2>(a, b, sk, nk, pure, lane);
+  } else if (nk <= 128) {
+    finish_warp<4>(a, b, sk, nk, pure, lane);
+  } else {
+    finish_warp<8>(a, b, sk, nk, pure, lane);
+  }
+  __syncwarp();  // sk is rewritten by the warp's next read
+}
+
+// One warp per read, after the group pass.
+__global__ void __launch_bounds__(kLightWarps * 32)
+    warp_kernel(const ReadsArgs a) {
+  __shared__ u32 s_keys[kLightWarps][kWarpCap];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int b = blockIdx.x * kLightWarps + wib;
+  if (b >= a.B) return;  // whole warps exit together
+  const bool pure = group_mode(a) && (a.flags[b] & kPure);
+  warp_read(a, b, pure, s_keys[wib], lane);
+}
+
+// ---------------------------------------------------------------------------
+// block path
+// ---------------------------------------------------------------------------
+
+// Block-wide inclusive max-scan of one non-negative long long per thread;
+// every thread gets the block's max in `total`. sh64 holds >= 33 values.
+// Contains __syncthreads, so every thread of the block must call it.
+__device__ __forceinline__ long long block_incl_max64(long long v,
+                                                      long long* sh64,
+                                                      long long& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v = max(v, y);
+  }
+  if (lane == 31) sh64[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    long long x = lane < nwarps ? sh64[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x = max(x, y);
+    }
+    if (lane < nwarps) sh64[lane] = x;
+    if (lane == 31) sh64[32] = x;
+  }
+  __syncthreads();
+  const long long out = warp > 0 ? max(v, sh64[warp - 1]) : v;
+  total = sh64[32];
+  __syncthreads();  // sh64 may be reused by the caller's next scan
+  return out;
+}
+
+// One block per listed read, a persistent grid over the list.
 __global__ void __launch_bounds__(kThreads)
-    reads_kernel(const ReadsArgs a) {
+    block_kernel(const ReadsArgs a) {
   extern __shared__ u32 smem[];
   __shared__ int sh[33];
+  __shared__ long long sh64[33];
   __shared__ int s_nk;
   __shared__ int s_ovf;
   __shared__ int s_w0;
   u32* keys;
-  int32_t* csum;
   if (a.scratch) {
     keys = a.scratch + (long long)blockIdx.x * 2 * a.key_cap;
   } else {
     keys = smem;
   }
-  csum = reinterpret_cast<int32_t*>(keys + a.key_cap);
+  int32_t* score = reinterpret_cast<int32_t*>(keys + a.key_cap);
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int D = a.D;
   const int off = a.L - a.Ls;
   const int pb = a.pos_bits;
   const u32 pmask = (1u << pb) - 1u;
-  const bool group_mode = a.groups && (*a.n_fix <= a.fix_cap2);
-  const u32 rmask = a.rb ? ((1u << a.rb) - 1u) : 0xFFFFFFFFu;
+  const bool gmode = group_mode(a);
+  const int n_list = *a.n_heavy;
 
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    const bool pure = group_mode && (a.flags[b] & kPure);
+  for (int h = blockIdx.x; h < n_list; h += gridDim.x) {
+    const int b = a.heavy[h];
+    const bool pure = gmode && (a.flags[b] & kPure);
     const u32* tg = a.tagv + (long long)b * a.Ls;
     const u32* py = a.payv + (long long)b * a.Ls;
     if (tid == 0) {
@@ -179,9 +548,7 @@ __global__ void __launch_bounds__(kThreads)
         if (pure) {
           keys[atomicAdd(&s_nk, 1)] = ((u32)a.n_genes << pb) | pos;
         } else {
-          u32 ridx = pay & rmask;
-          if (ridx >= (u32)a.n3) ridx = a.n3 - 1;
-          const u32* row = a.rows3 + (u64)ridx * a.rows3_w;
+          const u32* row = row_of(a, pay);
           const int deg = (int)row_field(row, 0);
           int nin;
           if (a.ext_w == 0) {
@@ -211,9 +578,7 @@ __global__ void __launch_bounds__(kThreads)
         int needy = 0, deg = 0;
         const u32* row = nullptr;
         if (j < a.Ls && tg[j] == kTagRow) {
-          u32 ridx = py[j] & rmask;
-          if (ridx >= (u32)a.n3) ridx = a.n3 - 1;
-          row = a.rows3 + (u64)ridx * a.rows3_w;
+          row = row_of(a, py[j]);
           deg = (int)row_field(row, 0);
           needy = deg > D;
         }
@@ -240,65 +605,87 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int nk = s_nk;
 
-    // ---- bitonic sort of keys[0 .. n2) with sentinel padding ----
-    int n2 = 1;
+    // ---- bitonic sort of keys[0 .. n2), n2 >= 256, sentinel padded:
+    // each warp sorts its 256-key chunks in registers; each level past 256
+    // takes its strides >= 256 through shared memory, one barrier each,
+    // and the rest in registers ----
+    int n2 = kChunk;
     while (n2 < nk) n2 <<= 1;
-    if (nk > 1) {
-      for (int i = nk + tid; i < n2; i += blockDim.x) keys[i] = 0xFFFFFFFFu;
-      __syncthreads();
-      for (int size = 2; size <= n2; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          for (int i = tid; i < (n2 >> 1); i += blockDim.x) {
-            const int lo = 2 * stride * (i / stride) + (i % stride);
-            const int hi = lo + stride;
-            const bool asc = (lo & size) == 0;
-            const u32 x = keys[lo], y = keys[hi];
-            if ((x > y) == asc) {
-              keys[lo] = y;
-              keys[hi] = x;
-            }
+    for (int i = nk + tid; i < n2; i += blockDim.x) keys[i] = kNoKey;
+    __syncthreads();
+    for (int size = kChunk; size <= n2; size <<= 1) {
+      for (int ls = __ffs(size) - 2; ls >= kChunkLog2; --ls) {
+        const int stride = 1 << ls;
+        for (int i = tid; i < (n2 >> 1); i += blockDim.x) {
+          const int lo = ((i >> ls) << (ls + 1)) | (i & (stride - 1));
+          const int hi = lo + stride;
+          const bool asc = (lo & size) == 0;
+          const u32 x = keys[lo], y = keys[hi];
+          if ((x > y) == asc) {
+            keys[lo] = y;
+            keys[hi] = x;
           }
-          __syncthreads();
         }
+        __syncthreads();
       }
+      for (int c = warp * kChunk; c < n2; c += nwarps * kChunk) {
+        u32 kr[kChunk / 32];
+#pragma unroll
+        for (int r = 0; r < kChunk / 32; ++r) kr[r] = keys[c + r * 32 + lane];
+        if (size == kChunk)
+          warp_bitonic_sort<kChunk / 32>(kr, lane, c);
+        else
+          warp_bitonic_merge<kChunk / 32>(kr, lane, c, size, kChunk / 2);
+#pragma unroll
+        for (int r = 0; r < kChunk / 32; ++r) keys[c + r * 32 + lane] = kr[r];
+      }
+      __syncthreads();
     }
 
-    // ---- segmented coverage: inclusive prefix sum of contributions ----
-    int carry = 0;
+    // ---- segments: the coverage prefix and each key's segment head by
+    // block scans (the head's prefix and index in one 64-bit max-scan);
+    // each segment end's cov * M + hits into score[] ----
+    const int M = a.L + 1;
+    int carry = 0, best = 0;
+    long long carry_head = 0;
     for (int base = 0; base < nk; base += blockDim.x) {
       const int i = base + tid;
       int contrib = 0;
+      bool start = false, end = false;
       if (i < nk) {
         const u32 key = keys[i];
-        if (i == 0 || (keys[i - 1] >> pb) != (key >> pb)) {
-          contrib = a.k;
-        } else {
-          const int d = (int)(key & pmask) - (int)(keys[i - 1] & pmask);
-          contrib = d < a.k ? d : a.k;
-        }
+        const u32 prev = keys[i > 0 ? i - 1 : 0];
+        const u32 g = key >> pb;
+        start = i == 0 || (prev >> pb) != g;
+        end = i + 1 == nk || (keys[i + 1] >> pb) != g;
+        const int d = (int)(key & pmask) - (int)(prev & pmask);
+        contrib = start ? a.k : (d < a.k ? d : a.k);
       }
       int chunk_total;
-      const int ex = block_exclusive_scan(contrib, sh, chunk_total);
-      if (i < nk) csum[i] = carry + ex + contrib;
+      const int cs = carry + block_exclusive_scan(contrib, sh, chunk_total) +
+                     contrib;
       carry += chunk_total;
+      long long chunk_head;
+      const long long head = max(
+          carry_head,
+          block_incl_max64(start ? ((long long)(cs - contrib) << 32) | i : 0,
+                           sh64, chunk_head));
+      carry_head = max(carry_head, chunk_head);
+      if (i < nk) {
+        const int sc = end ? (cs - (int)(head >> 32)) * M +
+                                 (i - (int)(head & 0xFFFFFFFF) + 1)
+                           : 0;
+        score[i] = sc;
+        best = max(best, sc);
+      }
     }
-    __syncthreads();
-
-    // ---- best (cov, hits) over segment ends ----
-    const int M = a.L + 1;
-    int best = 0;
-    for (int base = 0; base < nk; base += blockDim.x) {
-      const int i = base + tid;
-      const int comb = i < nk ? segment_score(keys, csum, nk, i, pb, M) : 0;
-      best = max(best, block_max(comb, sh));
-    }
+    best = block_max(best, sh);
 
     // ---- winners: segment ends scoring best, ascending gene ----
     int nw = 0;
     for (int base = 0; base < nk; base += blockDim.x) {
       const int i = base + tid;
-      const bool win = best > 0 && i < nk &&
-                       segment_score(keys, csum, nk, i, pb, M) == best;
+      const bool win = best > 0 && i < nk && score[i] == best;
       int chunk_total;
       const int rank = nw + block_exclusive_scan(win ? 1 : 0, sh, chunk_total);
       if (win) {
@@ -312,49 +699,48 @@ __global__ void __launch_bounds__(kThreads)
       a.winners[(long long)b * a.W + r] = -1;
     __syncthreads();
 
-    if (tid == 0) {
-      const int best_cov = best / M;
-      int len = a.length[b];
-      len = len < 0 ? 0 : (len > a.L ? a.L : len);
-      const int emit = best_cov >= a.thresh[len] ? 1 : 0;
-      int packed;
-      if (pure) {
-        packed = max(a.gmax[b], 0) | (1 << kPackNwShift) |
-                 (emit << kPackEmitShift) | (1 << kPackGrpShift);
-      } else {
-        const int nw_sat = nw < kNwSat ? nw : kNwSat;
-        packed = max(s_w0, 0) | (nw_sat << kPackNwShift) |
-                 (emit << kPackEmitShift) | (s_ovf << kPackOvfShift);
-      }
-      a.packed[b] = packed;
-      a.best_cov[b] = best_cov;
-    }
+    if (tid == 0) write_verdict(a, b, pure, best, nw, s_w0, s_ovf);
     __syncthreads();  // shared state is rewritten by the next read
   }
 }
 
 }  // namespace
 
-extern "C" int shkk_finish_groups(const void* tagv, const void* payv, int B,
-                                  int Ls, int rb, void* flags, void* gmax,
-                                  void* n_fix, void* stream) {
-  if (B > 0) {
-    const int threads = 256;
-    groups_kernel<<<grid_for((long long)B * 32, threads), threads, 0,
-                    (cudaStream_t)stream>>>(
-        (const u32*)tagv, (const u32*)payv, B, Ls, rb, (uint8_t*)flags,
-        (int32_t*)gmax, (int32_t*)n_fix);
+// Blocks of a kernel that fit on the card at once. Asked of the runtime
+// once per calling thread, kernel and shared-memory size; any grid is
+// correct, since the persistent kernel loops over its list.
+struct Resident {
+  int smem = -1, blocks = 0;
+};
+
+static cudaError_t resident_blocks(const void* kernel, int threads,
+                                   size_t smem, Resident& cache, int& out) {
+  if ((int)smem != cache.smem) {
+    int dev = 0, n_sm = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return e;
+    cache.blocks = max(per_sm, 1) * n_sm;
+    cache.smem = (int)smem;
   }
-  return (int)cudaGetLastError();
+  out = cache.blocks;
+  return cudaSuccess;
 }
 
-extern "C" int shkk_finish_reads(
+// The whole finish on one stream: zero the counters (counters[0] = n_fix,
+// counters[1] = the block path's list length), the group pass when the
+// index has group ids, the warp pass over every read, then the block path
+// over the reads it listed (at most `grid` blocks: the rows of the scratch
+// buffer).
+extern "C" int shkk_finish(
     const void* tagv, const void* payv, const void* length,
     const void* thresh, const void* rows3, int n3, int rows3_w, int D,
     const void* ext_mat, int ext_w, int B, int Ls, int L, int k,
     int pos_bits, int n_genes, int rb, int W, int has_rows, int groups,
-    const void* flags, const void* gmax, const void* n_fix, int fix_cap2,
-    int key_cap, int grid, void* scratch, void* packed, void* winners,
+    void* flags, void* gmax, void* counters, int fix_cap2, int key_cap,
+    int grid, void* scratch, void* heavy, void* packed, void* winners,
     void* best_cov, void* stream) {
   ReadsArgs a;
   a.tagv = (const u32*)tagv;
@@ -379,20 +765,42 @@ extern "C" int shkk_finish_reads(
   a.groups = groups;
   a.flags = (const uint8_t*)flags;
   a.gmax = (const int32_t*)gmax;
-  a.n_fix = (const int32_t*)n_fix;
+  a.n_fix = (const int32_t*)counters;
   a.fix_cap2 = fix_cap2;
   a.key_cap = key_cap;
   a.scratch = (u32*)scratch;
+  a.n_heavy = (int32_t*)counters + 1;
+  a.heavy = (int32_t*)heavy;
   a.packed = (int32_t*)packed;
   a.winners = (int32_t*)winners;
   a.best_cov = (int32_t*)best_cov;
   const size_t smem = scratch ? 0 : (size_t)key_cap * 8;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        reads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (B > 0 && grid > 0)
-    reads_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  if (B <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(counters, 0, 2 * sizeof(int32_t), st);
+  if (e != cudaSuccess) return (int)e;
+  if (groups) {
+    const int threads = 256;
+    groups_kernel<<<grid_for((long long)B * 32, threads), threads, 0, st>>>(
+        a.tagv, a.payv, B, Ls, rb, (uint8_t*)flags, (int32_t*)gmax,
+        (int32_t*)counters);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  warp_kernel<<<grid_for(B, kLightWarps), kLightWarps * 32, 0, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  static thread_local Resident block_cache;
+  e = resident_blocks((const void*)block_kernel, kThreads, smem, block_cache,
+                      blocks);
+  if (e != cudaSuccess) return (int)e;
+  grid = min(grid, blocks);
+  if (grid > 0) block_kernel<<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -40,12 +40,12 @@ NVCC_FLAGS = [
 # The kernels of the classify paths: the front end, the three probes
 # (hashed, xl, classic), the finish, the pair stream, and the sharded
 # Bloom filter's routing round (route, owner probe, return; all three in
-# csrc/route.cu). The finish takes two launches of its source (a
-# batch-wide pass, then one block per read) and the route three (count,
-# scan, scatter); each counts as one kernel. The last two are the
-# experiment kernels (the per-probe tile gather and the resident-table
-# bucket match of shark_tpu_torch/experiments/), which no classify path
-# launches.
+# csrc/route.cu). The finish takes three launches of its source (a
+# batch-wide group pass, a warp per read, a block per read too heavy for a
+# warp) and the route three (count, scan, scatter); each counts as one
+# kernel. The last two are the experiment
+# kernels (the per-probe tile gather and the resident-table bucket match
+# of shark_tpu_torch/experiments/), which no classify path launches.
 KERNELS = ("front", "probe", "finish", "pairs", "probe_xl", "classic",
            "shard_route", "shard_probe", "shard_return", "gather_tiles",
            "resident_match")
@@ -169,25 +169,25 @@ _L = ctypes.c_longlong
 _U64 = ctypes.c_ulonglong
 
 _SIGNATURES = {
-    # packed, vmask, B, L, k, mod_mode, mod_arg, idx_hi, idx_lo,
+    # packed, vmask, B, L, k, mod_mode, mod_arg, mod_magic, idx_hi, idx_lo,
     # win_valid, length, stream
-    "shkk_front": [_VP, _VP, _I, _I, _I, _I, _U64, _VP, _VP, _VP, _VP, _VP],
+    "shkk_front": [_VP, _VP, _I, _I, _I, _I, _U64, _U64, _VP, _VP, _VP, _VP,
+                   _VP],
     # idx_hi, idx_lo, win_valid, n, table, lgB, entry16, slots, stash,
     # n_stash, tagv, payv, stream
     "shkk_probe": [_VP, _VP, _VP, _L, _VP, _I, _I, _I, _VP, _I, _VP, _VP,
                    _VP],
-    # tagv, payv, B, Ls, rb, flags, gmax, n_fix, stream
-    "shkk_finish_groups": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # (see csrc/finish.cu: FinishArgs field order)
-    "shkk_finish_reads": [
+    # (see csrc/finish.cu: ReadsArgs)
+    "shkk_finish": [
         _VP, _VP, _VP, _VP,  # tagv, payv, length, thresh
         _VP, _I, _I, _I,  # rows3, n3, rows3_w, D
         _VP, _I,  # ext_mat (or 0), ext_w
         _I, _I, _I, _I, _I, _I, _I, _I,  # B, Ls, L, k, pos_bits,
         # n_genes, rows_bits, W
         _I, _I,  # has_rows, groups (0/1)
-        _VP, _VP, _VP, _I,  # flags, gmax, n_fix, fix_cap2
-        _I, _I, _VP,  # key_cap, grid, scratch (or 0)
+        _VP, _VP, _VP, _I,  # flags, gmax, counters (n_fix, n_heavy),
+        # fix_cap2
+        _I, _I, _VP, _VP,  # key_cap, grid, scratch (or 0), heavy list
         _VP, _VP, _VP,  # packed, winners, best_cov
         _VP,  # stream
     ],

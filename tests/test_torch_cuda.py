@@ -4,9 +4,12 @@ card. Marked `cuda`; without a CUDA device every test skips.
 chip_smoke.py holds each kernel against its plain version at the main
 paths' shapes. These tests cover the modes those paths do not reach: the
 entry8 table, the extension-row geometry, the finish's global-scratch key
-buffer for wide geometries, every group tier, k and Bloom-size variants
-of the front end and of the classic and xl probes, the xl geometries
-with and without a side table, reads shorter than k, the sharded Bloom
+buffer for wide geometries, every group tier, reads on both sides of the
+finish's warp cap (its warp path and its block path in one batch), k and
+Bloom-size variants of the front end (with a window count that is not a
+multiple of a warp, all-N reads, one read, rows that are not 16-byte
+aligned) and of the classic and xl probes, the xl geometries with and
+without a side table, reads shorter than k, the sharded Bloom
 filter's routing kernels at n in {1, 2, 8} shards, narrow and wide, with
 and without overflow (and reprobe from another thread on another
 stream), whole pipelines on random workloads, and the two experiment
@@ -103,14 +106,48 @@ class _Meta:
 
 
 @pytest.mark.parametrize("size_bits", [1 << 30, 1 << 33, 3 << 33])
-@pytest.mark.parametrize("k,L", [(11, 8), (15, 104), (17, 208), (31, 256)])
+@pytest.mark.parametrize("k,L", [(11, 8), (15, 104), (17, 208), (31, 256),
+                                 (17, 136)])
 def test_front_end_kernel(cuda, k, L, size_bits):
+    """L = 136 gives Ls = 120 windows, not a multiple of a warp."""
     rng = np.random.default_rng(k * L)
     codes = rng.integers(0, 5, size=(300, L)).astype(np.uint8)
     packed, vmask = step.pack_codes(torch.from_numpy(codes).to(cuda))
     meta = _Meta(k, size_bits)
     equal(step.front_end(packed, vmask, meta),
           step.front_end_plain(packed, vmask, meta))
+
+
+@pytest.mark.parametrize("case", ["all_n", "shorter_than_k", "one_read",
+                                  "odd_batch", "unaligned", "long",
+                                  "longest"])
+def test_front_end_kernel_edges(cuda, case):
+    """Every window is compared, invalid ones included: reads that are all
+    N, reads shorter than k (L = 16 < k = 21: the one window starts before
+    position 0), a batch of one read, a batch that is not a multiple of
+    the kernel's 32 reads a block, rows that are not 16-byte aligned
+    (the kernel stages them byte by byte), and reads so long that a block
+    takes 8 of them (L = 16376, whose blocks' rows do not start 16-byte
+    aligned, and the largest L the kernel takes, 16384)."""
+    rng = np.random.default_rng(17)
+    k, L, B = {"shorter_than_k": (21, 16, 77), "long": (31, 16376, 20),
+               "longest": (17, 16384, 9)}.get(case, (17, 104, 300))
+    if case == "one_read":
+        B = 1
+    elif case == "odd_batch":
+        B = 33
+    codes = rng.integers(0, 5, size=(B, L)).astype(np.uint8)
+    if case == "all_n":
+        codes[: B // 2] = 4
+    packed, vmask = step.pack_codes(torch.from_numpy(codes).to(cuda))
+    if case == "unaligned":
+        packed, vmask = packed[1:], vmask[1:]
+    for size_bits in (1 << 30, 1 << 33, 3 << 33):
+        meta = _Meta(k, size_bits)
+        got = step.front_end(packed, vmask, meta)
+        equal(got, step.front_end_plain(packed, vmask, meta))
+    if case == "all_n":
+        assert not got[2][: B // 2].any() and (got[3][: B // 2] == 0).all()
 
 
 @pytest.mark.parametrize("allow16", [True, False], ids=["entry16", "entry8"])
@@ -175,6 +212,106 @@ def test_finish_extension_rows(cuda, monkeypatch, scratch):
     packed = classify_both(cuda, index, encode(reads, L=128),
                            max_winners=24)[0]
     assert ((packed >> step.PACK_OVF_SHIFT) & 1).any()
+
+
+# Synthetic finish batches: reads of chosen kinds, so that their key counts
+# sit on chosen sides of the finish's warp cap (step.FINISH_WARP_CAP = 256)
+# at L = 160, k = 15 (146 windows) on family_index() (8 families of 5
+# genes: deg-5 rows, one group id per family). Per read kind:
+#   direct        tags 0/1/2, about 146 keys             (warp path)
+#   direct_heavy  tag 2 in every window, 292 keys        (block path)
+#   pure_few      30 rows of one family                  (warp path)
+#   pure_many     146 rows of one family: 146 keys under the group verdict
+#                 (warp path), 730 without it            (block path)
+#   impure_few    20 rows of two families + 10 direct    (warp path)
+#   impure_many   146 rows of two families, 730 keys     (block path)
+# A batch of 256 reads has FIX_CAP2 = 64: at most 64 impure reads keep the
+# group verdicts of the pure ones.
+FINISH_MIXES = {
+    "below": dict(direct=96, pure_many=96, impure_few=64),
+    "above": dict(direct_heavy=64, impure_many=128, pure_many=64),
+    "no_impure": dict(direct=64, direct_heavy=64, pure_many=64, pure_few=64),
+    "within_cap": dict(direct=64, direct_heavy=32, pure_many=64,
+                       impure_few=32, impure_many=32, pure_few=32),
+    "past_cap2": dict(direct=40, direct_heavy=40, impure_few=48,
+                      impure_many=48, pure_many=40, pure_few=40),
+}
+
+
+def finish_batch(index, mix, L=160, seed=0):
+    """numpy (tagv u32[B, Ls], payv u32[B, Ls], length i32[B], thresh
+    i32[L + 1]) of FINISH_MIXES[mix], its read kinds in random order."""
+    rng = np.random.default_rng(seed)
+    Ls = L - (index.k - 1)
+    kinds = [kind for kind, n in FINISH_MIXES[mix].items() for _ in range(n)]
+    kinds = [kinds[i] for i in rng.permutation(len(kinds))]
+    pay3 = step.rows3_payload(index)
+    gid = step.group_info(index)[0]
+    families = [np.flatnonzero(gid == g) for g in np.unique(gid)]
+    B = len(kinds)
+    tagv = np.zeros((B, Ls), np.uint32)
+    payv = np.zeros((B, Ls), np.uint32)
+    for b, kind in enumerate(kinds):
+        genes = rng.integers(0, index.n_genes, size=(2, Ls)).astype(np.uint32)
+        direct = genes[0] | (genes[1] << 16)
+        if kind == "direct":
+            tagv[b] = rng.choice(3, size=Ls, p=[0.3, 0.4, 0.3])
+        elif kind == "direct_heavy":
+            tagv[b] = step.TAG_D2
+        payv[b] = np.where(tagv[b] == step.TAG_D1, genes[0], direct)
+        if kind.startswith(("pure", "impure")):
+            fams = rng.choice(len(families), size=1 + kind.startswith("impure"),
+                              replace=False)
+            rows = np.concatenate([families[f] for f in fams])
+            n_rows = {"pure_few": 30, "impure_few": 20}.get(kind, Ls)
+            at = rng.choice(Ls, size=n_rows, replace=False)
+            picks = rng.choice(rows, size=n_rows)
+            if kind.startswith("impure"):  # both families in every read
+                picks[:2] = [families[fams[0]][0], families[fams[1]][0]]
+            tagv[b, at] = step.TAG_ROW
+            payv[b, at] = pay3[picks]
+            if kind == "impure_few":
+                free = np.setdiff1d(np.arange(Ls), at)[:10]
+                tagv[b, free] = step.TAG_D2
+                payv[b, free] = direct[free]
+    length = rng.integers(0, L + 1, size=B).astype(np.int32)
+    return tagv, payv, length, step.emit_threshold_table(0.6, L)
+
+
+@pytest.mark.parametrize("mix", list(FINISH_MIXES) + ["scratch"])
+def test_finish_warp_and_block_paths(cuda, monkeypatch, mix):
+    """The finish kernel against its plain version on batches whose reads
+    sit below the warp cap, above it, and on both sides at each group tier
+    (scratch: the within_cap batch with the block path's keys in global
+    scratch). The count of reads the kernel sent to its block path equals
+    finish_heavy_reads_plain's."""
+    if mix == "scratch":
+        monkeypatch.setattr(step, "_FINISH_SMEM_MAX", 0)
+    _, index = family_index()
+    L = 160
+    arrays = finish_batch(index, "within_cap" if mix == "scratch" else mix, L)
+    rows3, ext_mat = step.build_rows3(index)
+    assert ext_mat is None
+    kw = dict(ext_mat=None, meta=step.StaticMeta.for_index(index, L),
+              max_winners=8, L=L, has_rows=True)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    dev = [x.to(cuda) for x in cpu]
+    got = step.finish_from_tags(*dev, rows3=torch.from_numpy(rows3).to(cuda),
+                                **kw)
+    n_block = step.finish_heavy_count()
+    want = step.finish_from_tags(*cpu, rows3=torch.from_numpy(rows3), **kw)
+    equal(got, want)
+    heavy = step.finish_heavy_reads_plain(
+        cpu[0], cpu[1], rows3=torch.from_numpy(rows3), ext_mat=None,
+        meta=kw["meta"], L=L, has_rows=True)
+    assert n_block == int(heavy.sum())
+    B = heavy.numel()
+    assert n_block == {"below": 0, "above": B}.get(mix, n_block)
+    if mix not in ("below", "above"):
+        assert 0 < n_block < B
+    grp = int(((want[0] >> step.PACK_GRP_SHIFT) & 1).sum())
+    assert (grp > 0) == (mix in ("below", "no_impure", "within_cap",
+                                 "scratch"))
 
 
 @pytest.mark.parametrize("B,W,cap", [(4096, 16, 1 << 14), (300, 8, 256)])

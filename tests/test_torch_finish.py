@@ -6,9 +6,12 @@ finish_from_tags and the port's plain finish (finish_from_tags on CPU
 tensors). packed, winners and best_cov must be equal bit for bit across
 the three group tiers (no impure read; impure reads within FIX_CAP; past
 FIX_CAP2, where the whole batch takes full verdicts), the extension-row
-geometry and an impure read at the last batch index. The CUDA kernel
+geometry and an impure read at the last batch index. Key-heavy reads,
+past the warp cap of the CUDA finish (step.FINISH_WARP_CAP), are held to
+shark_tpu too: the plain version that the card tests trust for the
+kernel's block path is checked in that regime. The CUDA kernel
 (csrc/finish.cu) is held against the plain version on the card by
-chip_smoke.py."""
+chip_smoke.py and tests/test_torch_cuda.py."""
 
 import functools
 
@@ -26,6 +29,9 @@ from shark_tpu_torch.classify import step as tstep  # noqa: E402
 from shark_tpu_torch.convert import index_from_arrays  # noqa: E402
 from test_groups import _encode, _sample, family_workload  # noqa: E402,F401
 from test_homology import _high_degree_workload  # noqa: E402
+from test_torch_cuda import family_index, finish_batch  # noqa: E402
+
+from shark_tpu.index.build import build_index  # noqa: E402
 
 
 def shark_tpu_tags(index, codes):
@@ -48,8 +54,20 @@ def shark_tpu_tags(index, codes):
 
 def finish_both(index, codes, max_winners=8, c=0.6):
     """(shark_tpu, port) finish outputs (packed, winners, best_cov)."""
-    (tagv, payv, length), dix, meta = shark_tpu_tags(index, codes)
-    L = codes.shape[1]
+    (tagv, payv, length), _, _ = shark_tpu_tags(index, codes)
+    return finish_tags_both(index, tagv, payv, length, codes.shape[1],
+                            max_winners, c)[0]
+
+
+def finish_tags_both(index, tagv, payv, length, L, max_winners=8, c=0.6):
+    """shark_tpu's and the port's finish of the same (tag, payload)
+    windows must be equal; returns (shark_tpu's outputs, the port's
+    finish_heavy_reads_plain mask)."""
+    meta = jstep.StaticMeta.for_index(index, L)
+    dix = jstep.DeviceIndex(
+        *(jnp.asarray(a) if a is not None else None
+          for a in jstep.build_device_index(index))
+    )
     thresh = jstep.emit_threshold_table(c, L)
     has_rows = bool((np.diff(index.offsets) >= 3).any())
     jfin = jax.jit(functools.partial(
@@ -58,10 +76,7 @@ def finish_both(index, codes, max_winners=8, c=0.6):
     ))
     want = [np.asarray(x) for x in jfin(tagv, payv, length, thresh)]
 
-    tindex = index_from_arrays(vars(index))
-    for key in ("_row_geometry", "_row_geometry3"):
-        if key in index.__dict__:
-            tindex.__dict__[key] = index.__dict__[key]
+    tindex = index_of(index)
     rows3, ext_mat = tstep.build_rows3(tindex)
     got = tstep.finish_from_tags(
         torch.from_numpy(tagv), torch.from_numpy(payv),
@@ -74,7 +89,21 @@ def finish_both(index, codes, max_winners=8, c=0.6):
     got = [x.numpy() for x in got]
     for name, w, g in zip(("packed", "winners", "best_cov", "length"), want, got):
         np.testing.assert_array_equal(g, w, err_msg=name)
-    return want
+    heavy = tstep.finish_heavy_reads_plain(
+        torch.from_numpy(tagv), torch.from_numpy(payv),
+        rows3=torch.from_numpy(rows3),
+        ext_mat=torch.from_numpy(ext_mat) if ext_mat is not None else None,
+        meta=tstep.StaticMeta.for_index(tindex, L), L=L, has_rows=has_rows)
+    return want, heavy.numpy()
+
+
+def index_of(index):
+    """The port's copy of a shark_tpu index, with its forced geometries."""
+    tindex = index_from_arrays(vars(index))
+    for key in ("_row_geometry", "_row_geometry3"):
+        if key in index.__dict__:
+            tindex.__dict__[key] = index.__dict__[key]
+    return tindex
 
 
 def straddlers(rng, records, n):
@@ -140,3 +169,27 @@ def test_finish_extension_rows():
     packed = finish_both(index, _encode(reads, L=128), max_winners=24)[0]
     # core reads have more extension windows than EXT_CAP2: overflow bit
     assert ((packed >> jstep.PACK_OVF_SHIFT) & 1).any()
+
+
+def test_finish_key_heavy_reads():
+    """test_homology's 12-member family (deg-12 rows, D = 16) with 200
+    reads: a read with more than 21 core windows has more keys than the
+    warp cap, the singletons' reads far fewer."""
+    index, _, reads = _high_degree_workload(12)
+    codes = _encode(reads)
+    (tagv, payv, length), _, _ = shark_tpu_tags(index, codes)
+    want, heavy = finish_tags_both(index, tagv, payv, length, codes.shape[1])
+    assert heavy.any() and not heavy.all()
+
+
+@pytest.mark.parametrize("mix", ["no_impure", "within_cap", "past_cap2"])
+def test_finish_tiers_across_the_warp_cap(mix):
+    """test_torch_cuda's synthetic batches at each group tier: reads on
+    both sides of the warp cap (direct, pure and impure; few and many
+    keys), the same windows through shark_tpu and the port."""
+    records, _ = family_index()
+    index = build_index(records, 15, 1 << 26)
+    tagv, payv, length, _ = finish_batch(index_of(index), mix)
+    want, heavy = finish_tags_both(index, tagv, payv, length, 160)
+    assert heavy.any() and not heavy.all()
+    assert (grp_count(want[0]) > 0) == (mix != "past_cap2")

@@ -97,6 +97,30 @@ def test_xxh64_twin_known_answers():
     assert got == [xxh64_int(k) for k in keys]
 
 
+def test_fastmod_magic_matches_division():
+    """The front end kernel reduces the hash's high word modulo d =
+    size >> 32 as ((magic * a mod 2**64) * d) >> 64; that must equal
+    a - (a // d) * d for every 32-bit a and divisor. Checked over divisors
+    1..3000, the powers of two and their neighbours, and random 32-bit
+    divisors, each at word edges, multiples of d and their neighbours,
+    and random words."""
+    rng = np.random.default_rng(8)
+    top = (1 << 32) - 1
+    divisors = list(range(1, 3001))
+    divisors += [(1 << s) + e for s in range(1, 32) for e in (-1, 0, 1)]
+    divisors += [int(d) for d in rng.integers(1, 1 << 32, size=2000)] + [top]
+    for d in divisors:
+        magic = tstep._fastmod_magic(d)
+        assert 0 <= magic < 1 << 64
+        q = top // d
+        words = [0, 1, d - 1, d, d + 1, top - 1, top, q * d, q * d - 1]
+        words += [int(a) for a in rng.integers(0, 1 << 32, size=8)]
+        for a in words:
+            if 0 <= a <= top:
+                assert ((magic * a) & ((1 << 64) - 1)) * d >> 64 == \
+                    a - (a // d) * d, (a, d)
+
+
 def test_mod_size_rejects_other_sizes():
     with pytest.raises(ValueError):
         tstep._mod_size_params(3 << 20)
