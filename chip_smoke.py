@@ -9,7 +9,9 @@ Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi);
 2. build: nvcc for the eleven CUDA kernels (the nine csrc/*.cu, one nvcc
-   each, all started together) and g++ for the C++ host engine, timed;
+   each, all started together), nvcc for the bare 16-byte gather that the
+   xl probe is held to (GATHER16_SRC, not a kernel of the port) and g++
+   for the C++ host engine, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main paths' shapes (B = 8192 and 65536 reads,
    L = 104 single-end and 208 paired): exact equality (integer code,
@@ -29,12 +31,18 @@ Phases, each printing its lines; any failure exits non-zero:
    oracle); the 8-shard classifier's verdicts on a 65536-read batch must
    equal the classic classifier's. The record holds each kernel at
    B = 65536, L = 104, and the homolog index's kernels (K1-K4) also at
-   the CLI's batch B = 8192; for the front end and the finish it adds
-   their device time from torch.profiler beside the CUDA-event time,
-   which also holds the wrapper's host work. Each batch prints how many
-   reads took the finish's block path, held to finish_heavy_reads_plain.
-   The library forms of the owner probe and the return compute their
-   whole function (indices, every slot or window, zeros on a miss);
+   the CLI's batch B = 8192; for the front end, the finish, the pair
+   stream and the xl probe it adds their device time from torch.profiler
+   beside the CUDA-event time, which also holds the wrapper's host work.
+   Each batch prints how many reads took the finish's block path, held to
+   finish_heavy_reads_plain. A batch of 64 reads at L = 32768 holds the
+   front end's long-read kernel to its plain version. At the record shape
+   the xl probe's footprint line times it with every bucket masked into
+   the table's first 32 MB and 256 MB, on the whole table, and without
+   its side table (those three are wrong, timing only), beside the bare
+   16-byte gather at the same bucket indices. The library forms of the
+   owner probe and the return compute their whole function (indices,
+   every slot or window, zeros on a miss);
 4. end to end through the CLI entry point (shark_tpu_torch.cli.main, what
    `python -m shark_tpu_torch` runs) with the default flags
    -k 17 -c 0.6 -b 1, on workloads made with numpy from a seed at
@@ -98,6 +106,7 @@ N_CPU_CHECK, N_ORACLE_CHECK = 20_000, 2_000
 SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
 RECORD_SHAPE = (65536, 104)  # bench.py's batch: the shape the record holds
 CLI_SHAPE = (8192, 104)  # the CLI's batch: K1-K4 are recorded here too
+LONG_SHAPE = (64, 32768)  # reads over 16384 bases: K1's long-read kernel
 REPS = 7
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM. For the
@@ -291,23 +300,167 @@ def bound(nbytes: float, ops: float):
 
 
 def device_ms(fn, reps=REPS):
-    """Device time of one fn() call, L2 warm: the self device time of
-    every kernel and memset that torch.profiler records over `reps` calls,
-    over reps; None when the profiler records no device time. Beside the
-    CUDA-event time, which also holds the wrapper's host work when that
-    is longer than the kernel."""
+    """Device time of one fn() call, L2 warm: over `reps` calls under
+    torch.profiler, the mean self device time of each kernel and memset it
+    records, per record, summed over them (fn launches each once a call).
+    A session may miss the records of some calls, so its total over reps
+    would read low; it may also record work queued before it, such as
+    another timer's L2 flush, so this is the least of three sessions.
+    None when none records device time. Beside the CUDA-event time, which
+    also holds the wrapper's host work when that is longer than the
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages())
-    return us / reps / 1e3 if us > 0 else None
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(t / e.count for e, t in device_records(prof))
+        if us > 0:
+            best = us if best is None else min(best, us)
+    return None if best is None else best / 1e3
+
+
+def device_records(prof):
+    """(event, self device µs over all its records) of each kernel or
+    memset a torch.profiler session recorded."""
+    out = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and e.count > 0:
+            out.append((e, t))
+    return out
+
+
+# The floor K6 is held to (as P1 holds K5 and K7b): a bare gather of the
+# 16-byte table rows at the xl probe's bucket indices, four rows a thread
+# in flight, each row folded to one word so the loads cannot be dropped.
+# Not a kernel of the port: it computes nothing the classify path needs.
+GATHER16_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void gather16(const uint4* __restrict__ table,
+                         const int32_t* __restrict__ idx, long long n,
+                         uint32_t* __restrict__ out) {
+  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  uint4 v[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    v[r] = make_uint4(0, 0, 0, 0);
+    if (i0 + r < n) {
+      const uint4* p = table + (uint32_t)idx[i0 + r];
+      asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+          : "=r"(v[r].x), "=r"(v[r].y), "=r"(v[r].z), "=r"(v[r].w)
+          : "l"(p));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (i0 + r < n) out[i0 + r] = v[r].x ^ v[r].y ^ v[r].z ^ v[r].w;
+}
+extern "C" int gather16_launch(const void* table, const void* idx,
+                               long long n, void* out, void* stream) {
+  if (n > 0)
+    gather16<<<(unsigned)((n + 1023) / 1024), 256, 0, (cudaStream_t)stream>>>(
+        (const uint4*)table, (const int32_t*)idx, n, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_gather16():
+    """nvcc GATHER16_SRC into build/gather16/ (beside the kernels' build
+    directory); returns a function (table u32[rows, 4], idx i32[n]) ->
+    u32[n]."""
+    import ctypes
+
+    from shark_tpu_torch import kernels
+
+    d = os.path.join(HERE, "build", "gather16")
+    os.makedirs(d, exist_ok=True)
+    src, so = os.path.join(d, "gather16.cu"), os.path.join(d, "libgather16.so")
+    with open(src, "w") as f:
+        f.write(GATHER16_SRC)
+    r = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
+                        "-o", so, src], capture_output=True, text=True)
+    need(r.returncode == 0, "nvcc failed for the 16-byte gather\n"
+         + r.stdout + r.stderr)
+    fn = ctypes.CDLL(so).gather16_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + \
+        [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+
+    def gather(table, idx):
+        out = torch.empty(idx.numel(), dtype=torch.uint32, device=idx.device)
+        rc = fn(table.data_ptr(), idx.data_ptr(), idx.numel(),
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        need(rc == 0, f"gather16 launch failed ({rc})")
+        return out
+
+    return gather
+
+
+def back_to_back_ms(fn, n=20):
+    """Mean time of fn() over n calls queued back to back between two CUDA
+    events, L2 warm: the device time of one call when its kernels take
+    longer than the host needs to queue them, as the xl probe's do."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def xl_footprint(args6, hmeta, gather16, timer):
+    """K6 on the same windows with idx_lo's bucket bits masked so that every
+    bucket falls in the table's first 32 MB (L2-resident) or 256 MB, on the
+    whole table, and with has_side false (these three give wrong results:
+    timing only), beside the bare 16-byte gather at the same bucket
+    indices. {run: (event ms, device ms, back-to-back ms)}: compare runs
+    within one process, which holds one allocation of the table."""
+    from shark_tpu_torch.classify import hashed
+
+    idx_hi, idx_lo, win_valid = args6[:3]
+    lo = idx_lo.to(torch.int64)
+    bmask = (1 << hmeta.lgB) - 1
+    out = {}
+    for tag, rows_log2 in (("32MB", 21), ("256MB", 24)):
+        keep = min((1 << rows_log2) - 1, bmask)
+        masked = ((lo & ~bmask) | (lo & keep)).to(torch.uint32)
+
+        def run(m=masked):
+            return hashed.probe_xl(idx_hi, m, win_valid, *args6[3:])
+        out[tag] = (timer(run), device_ms(run), back_to_back_ms(run))
+
+    def full():
+        return hashed.probe_xl(*args6)
+
+    def no_side():
+        return hashed.probe_xl(*args6[:-1],
+                               dataclasses.replace(hmeta, has_side=False))
+    for tag, fn in (("full", full), ("no_side", no_side)):
+        out[tag] = (timer(fn), device_ms(fn), back_to_back_ms(fn))
+    bidx = (lo & bmask)[win_valid].to(torch.int32)
+    rows = args6[3].view(torch.int32)[bidx.long()]
+    same("gather16", [gather16(args6[3], bidx)],
+         [(rows[:, 0] ^ rows[:, 1] ^ rows[:, 2] ^ rows[:, 3]).view(
+             torch.uint32)])
+    del rows
+    def floor():
+        return gather16(args6[3], bidx)
+    out["gather16"] = (timer(floor), device_ms(floor), back_to_back_ms(floor))
+    out["gather16_rows"] = int(bidx.numel())
+    return out
 
 
 def same(name, got, want):
@@ -449,7 +602,8 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
             ms=timer(lambda: step.extract_pairs(k3[0], k3[1], cap)),
             plain_ms=timer(lambda: step.extract_pairs_plain(k3[0], k3[1], cap)),
             library_ms=timer(lambda: torch.sort(keys)),
-            bound=bound(B * 4 + B * W * 4 + min(cap, B * W) * 4, B * W * 3),
+            bound=bound(B * 4 + total * 4 + min(cap, B * W) * 4, B * W * 3),
+            device_ms=device_ms(lambda: step.extract_pairs(k3[0], k3[1], cap)),
         )
         say_rows(rows, B, L)
         say(f"kernel batch B={B} L={L}: group verdicts {grp}, "
@@ -459,7 +613,35 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
             record = rows
         if (B, L) == CLI_SHAPE:
             cli_record = rows
+    check_long_reads(clf, timer)
     return record, cli_record
+
+
+def check_long_reads(clf, timer, B=LONG_SHAPE[0], L=LONG_SHAPE[1]):
+    """K1's long-read kernel (L > 16384) against its plain version on
+    random reads of random lengths with Ns, one of L bases and one all
+    N."""
+    from shark_tpu_torch.classify import step
+
+    rng = np.random.default_rng(2029)
+    meta, _ = clf._geometry(L)
+    codes = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    codes[rng.random((B, L)) < 0.02] = 4
+    lens = rng.integers(L // 2, L + 1, size=B)
+    lens[0] = L
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+    codes[1] = 4
+    packed, vmask = step.pack_codes(torch.from_numpy(codes).to(clf.device))
+    got = step.front_end(packed, vmask, meta)
+    err = same("front_end (long reads)", got,
+               step.front_end_plain(packed, vmask, meta))
+    need(bool(got[2][0].any()) and not bool(got[2][1].any()),
+         "front_end (long reads): window validity")
+    say(f"kernel front_end long reads B={B} L={L}: exact (max|err| {err})  "
+        f"kernel_ms={timer(lambda: step.front_end(packed, vmask, meta)):.4f}"
+        f"  plain_ms="
+        f"{timer(lambda: step.front_end_plain(packed, vmask, meta)):.4f}  "
+        f"windows {got[0].numel()}, valid {int(got[2].sum())}")
 
 
 def say_rows(rows, B, L):
@@ -494,7 +676,8 @@ def xl_geometry(clf):
                 flagged_share=flagged / clf.dix.table.shape[0])
 
 
-def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer):
+def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer,
+                        gather16):
     """Phase 3 on the transcriptome index: K6 (xl, through xclf's tables)
     and K5 (classic, through cclf's) on the same windows. Returns their
     record at record_shape."""
@@ -541,7 +724,19 @@ def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer):
             library_ms=timer(lambda: tbl[bucket]),
             bound=bound(nbytes, n * (4 * 4 + 10) + n_side * (4 * 8 + 4 * S
                                                                + 10)),
+            device_ms=device_ms(lambda: hashed.probe_xl(*args6)),
         )
+        if (B, L) == record_shape:
+            fp = xl_footprint(args6, hmeta, gather16, timer)
+            sectors = n * 17 + touched * 32 + side_touched * 64
+            say("kernel probe_xl footprint B={} L={} (event ms, device ms, "
+                "back-to-back ms; masked runs and no_side give wrong "
+                "results, timing only): "
+                "{}; gather16 of {} rows; sector-counted bound {:.4f} ms"
+                .format(B, L, json.dumps({k: v for k, v in fp.items()
+                                          if k != "gather16_rows"}),
+                        fp["gather16_rows"], sectors / PEAK_BYTES_S * 1e3))
+            rows["probe_xl"]["footprint"] = fp
 
         # K5 -------------------------------------------------------------
         args5 = (idx_hi, idx_lo, win_valid, cdix.bf_rank, cdix.pay)
@@ -1169,7 +1364,8 @@ def main() -> int:
     say(f"card: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s))")
 
-    # 2. build: g++ in a thread while the nvcc processes run
+    # 2. build: g++ and the 16-byte gather's nvcc in threads while the
+    # kernels' nvcc processes run
     gpp = {}
 
     def build_native():
@@ -1178,12 +1374,21 @@ def main() -> int:
         except RuntimeError as e:
             gpp["err"] = e
 
-    th = threading.Thread(target=build_native)
-    th.start()
+    def build_floor():
+        try:
+            gpp["gather16"] = build_gather16()
+        except SmokeFailure as e:
+            gpp["err"] = e
+
+    threads = [threading.Thread(target=f) for f in (build_native, build_floor)]
+    for th in threads:
+        th.start()
     nvcc_s, log = kernels.build(ptxas_info=True, force=True)
-    th.join()
+    for th in threads:
+        th.join()
     if "err" in gpp:
         raise SmokeFailure(str(gpp["err"]))
+    gather16 = gpp["gather16"]
     kernels.lib()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1248,7 +1453,7 @@ def main() -> int:
             f"{cclf.dix.bf_rank.numel() * 4 / 1e9:.2f} GB, pay "
             f"{cclf.dix.pay.numel() * 4 / 1e9:.2f} GB)")
         record.update(check_txome_kernels(xclf, cclf, tgenes, shapes,
-                                          record_shape, timer))
+                                          record_shape, timer, gather16))
         del xclf
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,45 +1,49 @@
 #!/usr/bin/env python3
-"""Time the front end (K1) and the finish (K3) of shark_tpu_torch on one
-CUDA card, kernel by kernel.
+"""Time the front end (K1), the finish (K3), the pair stream (K4) and the
+xl probe (K6) of shark_tpu_torch on one CUDA card, kernel by kernel.
 
     python3 scripts/time_front_finish.py [CHECKOUT]
 
 CHECKOUT is the root of the checkout whose kernels are timed (default: the
 one holding this script), so that two commits can be held side by side in
-one run on one card. On the homolog panel's index of chip_smoke.py (k 17,
-2^33 Bloom bits), at B x L in {8192 x 104, 65536 x 104, 65536 x 208},
-each kernel is first checked against its plain version, then printed:
-its CUDA-event time as chip_smoke.py takes it (median of 7, L2 flushed),
-the host time of one wrapper call (50 calls without a synchronisation),
-and the device time of each kernel and memset the wrapper launches
-(torch.profiler, L2 warm, mean of 7 calls).
+one run on one card; the helpers (workloads, timers, the 16-byte gather)
+come from this script's own chip_smoke.py. Each kernel is first checked
+against its plain version, then printed: its CUDA-event time as
+chip_smoke.py takes it (median of 7, L2 flushed), the host time of one
+wrapper call (50 calls without a synchronisation), and the device time of
+each kernel and memset the wrapper launches (torch.profiler, L2 warm, mean
+over the records of 7 calls, with the count of records).
+
+K1, K3 and K4 run on the homolog panel's index of chip_smoke.py (k 17,
+2^33 Bloom bits) at B x L in {8192 x 104, 65536 x 104, 65536 x 208}; K6
+on chip_smoke.py's 50,000-gene transcriptome index (xl layout with a side
+table) at 8192 x 104 and 65536 x 104, where at 65536 it also prints
+chip_smoke.py's footprint runs (every bucket masked into the table's first
+32 MB or 256 MB, the whole table, no side table; the masked runs are wrong
+and timing only) beside the bare 16-byte gather at the same buckets.
 """
 
+import argparse
 import functools
+import importlib.util
+import json
 import os
+import shutil
 import sys
 import time
 
 import numpy as np
 import torch
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                       os.path.join(os.path.dirname(__file__), ".."))
-sys.path.insert(0, ROOT)
-
-import chip_smoke as cs  # noqa: E402
-from shark_tpu_torch import kernels  # noqa: E402
-from shark_tpu_torch.classify import hashed, step  # noqa: E402
-from shark_tpu_torch.classify.step import Classifier  # noqa: E402
-from shark_tpu_torch.index.build import build_index  # noqa: E402
-from shark_tpu_torch.utils.timers import cuda_ms  # noqa: E402
-
+OWN_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SHAPES = [(8192, 104), (65536, 104), (65536, 208)]
+XL_SHAPES = [(8192, 104), (65536, 104)]
 REPS = 7
 
 
-def device_breakdown(fn):
-    """{kernel name: device ms of one call}."""
+def device_breakdown(cs, fn):
+    """{kernel name: (device ms per recorded launch, records)} over REPS
+    calls; fewer records than REPS means the profiler missed some."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -48,13 +52,9 @@ def device_breakdown(fn):
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0:
-            out[e.key.split("(")[0].replace("(anonymous namespace)::", "")
-                or e.key] = round(us / REPS / 1e3, 4)
-    return out
+    return {e.key.split("(")[0].replace("(anonymous namespace)::", "").strip()
+            or e.key: (round(t / e.count / 1e3, 4), e.count)
+            for e, t in cs.device_records(prof)}
 
 
 def host_us(fn, n=50):
@@ -68,20 +68,22 @@ def host_us(fn, n=50):
     return (t1 - t0) / n * 1e6
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("no CUDA device: this script times the kernels on the card",
-              file=sys.stderr)
-        return 1
-    kernels.build(force=True)
-    kernels.lib()
+def report(cs, tag, fn, timer):
+    print(f"{tag}: event_ms={timer(fn):.4f} host_us={host_us(fn):.1f} "
+          f"device_ms={device_breakdown(cs, fn)}", flush=True)
+
+
+def time_homolog(cs, timer):
+    """K1, K3 and K4 on the homolog panel's index."""
+    from shark_tpu_torch.classify import hashed, step
+    from shark_tpu_torch.classify.step import Classifier
+    from shark_tpu_torch.index.build import build_index
+
     genes = cs.homolog_genes(np.random.default_rng(7))
     index = build_index([(f"H{g:05d}", s.tobytes())
                          for g, s in enumerate(genes)], cs.K, cs.BF_GB << 33)
     clf = Classifier(index, max_winners=16, c=cs.C)
-    timer = functools.partial(cuda_ms, reps=REPS)
     rng = np.random.default_rng(2024)
-    print(f"{ROOT}: {torch.cuda.get_device_name(0)}")
     for B, L in SHAPES:
         meta, thresh = clf._geometry(L)
         codes = torch.from_numpy(cs.codes_for_shape(rng, genes, B, L)).cuda()
@@ -96,13 +98,97 @@ def main() -> int:
                   max_winners=16, L=L, has_rows=clf._hmeta.has_rows)
         finish = functools.partial(step.finish_from_tags, tagv, payv, length,
                                    thresh, **kw)
-        cs.same("finish_from_tags", finish()[:3],
+        k3 = finish()
+        cs.same("finish_from_tags", k3[:3],
                 step.finish_from_tags_plain(tagv, payv, length, thresh,
                                             **kw)[:3])
-        for name, fn in (("front", front), ("finish", finish)):
-            print(f"B={B} L={L} {name}: event_ms={timer(fn):.4f} "
-                  f"host_us={host_us(fn):.1f} device_ms={device_breakdown(fn)}",
-                  flush=True)
+        cap, total = cs.pair_cap(k3[0], B, 16)
+        pairs = functools.partial(step.extract_pairs, k3[0], k3[1], cap)
+        cs.same("extract_pairs", [pairs()],
+                [step.extract_pairs_plain(k3[0], k3[1], cap)])
+        report(cs, f"B={B} L={L} front", front, timer)
+        report(cs, f"B={B} L={L} finish", finish, timer)
+        report(cs, f"B={B} L={L} pairs (pairs {total}, cap {cap})", pairs,
+               timer)
+
+
+def txome_xl(cs):
+    """(genes, the xl Classifier) of chip_smoke.py's transcriptome."""
+    from shark_tpu_torch.classify.step import Classifier
+    from shark_tpu_torch.io import native
+
+    work = os.path.join(OWN_ROOT, "build", "time_xl")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        genes = cs.txome_genes(np.random.default_rng(2026))
+        fa = os.path.join(work, "genes.fa")
+        cs.write_fasta(fa, genes, b"G")
+        tindex = native.build_index_native(fa, cs.K, cs.BF_GB << 33,
+                                           threads=os.cpu_count())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    xclf = Classifier(tindex, max_winners=16, c=cs.C)
+    assert xclf.probe == "xl" and xclf._hmeta.has_side
+    return genes, xclf
+
+
+def xl_windows(cs, xclf, genes, rng, B, L):
+    """Front-end windows of B transcriptome reads at L on the card."""
+    from shark_tpu_torch.classify import step
+
+    meta, _ = xclf._geometry(L)
+    codes = torch.from_numpy(cs.codes_for_shape(
+        rng, genes, B, L, single=cs.panel_reads)).cuda()
+    return step.front_end(*step.pack_codes(codes), meta)[:3]
+
+
+def time_xl(cs, timer):
+    """K6 on the transcriptome index, and its footprint at B = 65536."""
+    from shark_tpu_torch.classify import hashed
+
+    gather16 = cs.build_gather16()
+    genes, xclf = txome_xl(cs)
+    dix, hmeta = xclf.dix, xclf._hmeta
+    rng = np.random.default_rng(2025)
+    for B, L in XL_SHAPES:
+        wins = xl_windows(cs, xclf, genes, rng, B, L)
+        args6 = (*wins, dix.table, dix.side, dix.side_stash, hmeta)
+        xl = functools.partial(hashed.probe_xl, *args6)
+        cs.same("probe_xl", xl(), hashed.probe_xl_plain(*args6))
+        report(cs, f"B={B} L={L} xl", xl, timer)
+        if B == 65536:
+            fp = cs.xl_footprint(args6, hmeta, gather16, timer)
+            print(f"B={B} L={L} xl footprint (event ms, device ms, "
+                  f"back-to-back ms): "
+                  f"{json.dumps(fp)}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("checkout", nargs="?", default=OWN_ROOT)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device: this script times the kernels on the card",
+              file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.checkout)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(OWN_ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from shark_tpu_torch import kernels
+    from shark_tpu_torch.io import native
+    from shark_tpu_torch.utils.timers import cuda_ms
+
+    native.rebuild()  # a library built on another host may not load here
+    kernels.build(force=True)
+    kernels.lib()
+    timer = functools.partial(cuda_ms, reps=REPS)
+    print(f"{root}: {torch.cuda.get_device_name(0)}", flush=True)
+    time_homolog(cs, timer)
+    time_xl(cs, timer)
     return 0
 
 

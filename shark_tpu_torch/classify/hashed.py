@@ -730,11 +730,15 @@ def probe_xl(
     if tuple(side.shape) != (1 << hmeta.side_lgB, 2, BUCKET_SLOTS):
         raise ValueError(f"side table shape {tuple(side.shape)}")
     _check_stash(side_stash, "side_stash", XL_SIDE_STASH_CAP, dev)
-    tagv = torch.empty_like(idx_lo)
-    payv = torch.empty_like(idx_lo)
+    # both outputs are views of one allocation, each 16-byte aligned
+    n = idx_lo.numel()
+    n4 = (n + 3) & ~3
+    out = torch.empty((n4 + n,), dtype=torch.uint32, device=dev)
+    tagv = out[:n].view(idx_lo.shape)
+    payv = out[n4:].view(idx_lo.shape)
     rc = kernels.lib().shkk_probe_xl(
         idx_hi.data_ptr(), idx_lo.data_ptr(), win_valid.data_ptr(),
-        idx_lo.numel(), table.data_ptr(), hmeta.lgB, side.data_ptr(),
+        n, table.data_ptr(), hmeta.lgB, side.data_ptr(),
         hmeta.side_lgB, int(hmeta.has_side), side_stash.data_ptr(),
         side_stash.shape[0], tagv.data_ptr(), payv.data_ptr(),
         kernels.stream(dev))

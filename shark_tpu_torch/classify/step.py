@@ -607,16 +607,17 @@ def front_end_plain(packed: torch.Tensor, vmask: torch.Tensor, meta):
 def front_end(packed: torch.Tensor, vmask: torch.Tensor, meta: "StaticMeta"):
     """K1: planar reads (u8[B, L/4], u8[B, L/8]) -> (idx_hi u32[B, Ls],
     idx_lo u32[B, Ls], win_valid bool[B, Ls], length i32[B]).
-    CUDA tensors run csrc/front.cu; CPU tensors the plain version."""
+    CUDA tensors run csrc/front.cu (reads over 16384 bases through its
+    long-read kernel); CPU tensors the plain version."""
     B, L4 = packed.shape
     L = 4 * L4
     if vmask.shape != (B, L // 8):
         raise ValueError(f"vmask shape {tuple(vmask.shape)} != {(B, L // 8)}")
     if not packed.is_cuda:
         return front_end_plain(packed, vmask, meta)
-    if L % 8 or not 8 <= L <= 16384:
+    if L % 8 or L < 8:
         raise ValueError(
-            f"the front end kernel takes 8 <= L <= 16384, L % 8 == 0 (L = {L})")
+            f"the front end kernel takes L >= 8, L % 8 == 0 (L = {L})")
     dev = packed.device
     kernels.require(packed, "packed", torch.uint8, 2, dev)
     kernels.require(vmask, "vmask", torch.uint8, 2, dev)
@@ -1003,10 +1004,9 @@ def extract_pairs(packed: torch.Tensor, winners: torch.Tensor, cap: int):
         raise ValueError("packed and winners disagree on the batch size")
     out_len = min(cap, B * W)
     out = torch.empty((out_len,), dtype=torch.uint32, device=dev)
-    offsets = torch.empty((B + 1,), dtype=torch.int32, device=dev)
     rc = kernels.lib().shkk_pairs(
         packed.data_ptr(), winners.data_ptr(), B, W, out.data_ptr(),
-        out_len, offsets.data_ptr(), kernels.stream(dev))
+        out_len, kernels.stream(dev))
     kernels.check(rc, "pairs")
     kernels.LAUNCHES.add("pairs")
     return out

@@ -38,6 +38,17 @@
 //   multiply by a 64-bit magic number from the host
 //   (step._fastmod_magic: Lemire, Kaser and Kurz's direct remainder).
 // Consecutive lanes store consecutive windows, so the stores coalesce.
+//
+// Reads longer than kMaxShortL bases take a second kernel: a whole read no
+// longer fits in shared memory, and the table above packs positions into
+// 12-bit fields. A block takes one read, and each warp walks its share of
+// the read in tiles of kTile positions. A lane finds its base's planar byte
+// by comparing with the plane widths, reads it from global memory (the 32
+// lanes read 32 consecutive bytes), and the warp builds the same three bit
+// streams for the tile plus one word for the k - 1 bases its last windows
+// reach past it; the window extraction is the one above. Tiles step over
+// all L positions, not only the Ls windows, so the length counts each base
+// once. This path serves rare reads and is written to be right, not fast.
 #include "common.cuh"
 
 namespace {
@@ -45,6 +56,9 @@ namespace {
 constexpr int kReads = 32;  // reads per block, at most
 constexpr int kWarps = 8;
 constexpr u32 kFull = 0xffffffffu;
+constexpr int kMaxShortL = 16384;      // longest read of the staged path
+constexpr int kTileWords = 32;         // stream words a long-read tile owns
+constexpr int kTile = 32 * kTileWords;  // positions (and windows) a tile owns
 
 constexpr u64 P1 = 11400714785074694791ull;
 constexpr u64 P2 = 14029467366897019727ull;
@@ -109,9 +123,62 @@ __device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* src,
     dst[i] = src[i];
 }
 
+// Word c of a warp's three bit streams from the 32 lanes' bases (lane i
+// holds base i of the word: its 2-bit code, 0 when invalid, and its
+// validity bit); lane 0 stores it. Returns the validity word.
+__device__ __forceinline__ u32 put_word(u32 code, u32 v, int lane, u64* F,
+                                        u64* R, u32* V, int c) {
+  // lane i's base: forward bits 63-2i..62-2i, complement bits 2i+1..2i
+  const bool top = lane < 16;
+  const u32 fc = code << (2 * (15 - (lane & 15)));
+  const u32 rcm = (3u ^ code) << (2 * (lane & 15));
+  const u32 f_hi = __reduce_or_sync(kFull, top ? fc : 0u);
+  const u32 f_lo = __reduce_or_sync(kFull, top ? 0u : fc);
+  const u32 r_lo = __reduce_or_sync(kFull, top ? rcm : 0u);
+  const u32 r_hi = __reduce_or_sync(kFull, top ? 0u : rcm);
+  const u32 vb = __ballot_sync(kFull, v);
+  if (lane == 0) {
+    F[c] = ((u64)f_hi << 32) | f_lo;
+    R[c] = ((u64)r_hi << 32) | r_lo;
+    V[c] = vb;
+  }
+  return vb;
+}
+
+// The window whose k bases start at stream index t: its canonical k-mer from
+// two words of each stream, hashed, reduced and stored at flat index `at`.
 // mod_mode (see step.py _mod_size): 0 = power of two <= 2^32 (mod_arg is
 // the lo mask, hi = 0); 1 = power of two > 2^32 (mod_arg is the hi mask);
 // 2 = multiple of 2^32 (mod_arg = size >> 32, hi %= it by mod_magic).
+__device__ __forceinline__ void emit_window(const FrontArgs& a, long long at,
+                                            const u64* F, const u64* R,
+                                            const u32* V, int t) {
+  const int k = a.k;
+  const int w = t >> 5;
+  const int sh = 2 * (t & 31);
+  const u64 fa = F[w], fb = F[w + 1], ra = R[w], rb = R[w + 1];
+  const u64 top = sh ? (fa << sh) | (fb >> (64 - sh)) : fa;
+  const u64 fwd = top >> (64 - 2 * k);
+  const u64 rc = (sh ? (ra >> sh) | (rb << (64 - sh)) : ra) &
+                 ((1ull << (2 * k)) - 1);
+  const u32 vbits = __funnelshift_r(V[w], V[w + 1], t & 31);
+  const u32 kmask1 = (1u << k) - 1;
+  const u64 h = xxh64_8(fwd < rc ? fwd : rc);
+  u32 hi = (u32)(h >> 32);
+  u32 lo = (u32)h;
+  if (a.mod_mode == 0) {
+    hi = 0;
+    lo &= (u32)a.mod_arg;
+  } else if (a.mod_mode == 1) {
+    hi &= (u32)a.mod_arg;
+  } else {
+    hi = (u32)__umul64hi(a.mod_magic * hi, a.mod_arg);
+  }
+  a.idx_hi[at] = hi;
+  a.idx_lo[at] = lo;
+  a.win_valid[at] = (vbits & kmask1) == kmask1 ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kWarps * 32) front_kernel(const FrontArgs a) {
   extern __shared__ uint4 smem4[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
@@ -150,11 +217,8 @@ __global__ void __launch_bounds__(kWarps * 32) front_kernel(const FrontArgs a) {
   u64* F = streams + warp * 2 * NC;  // forward codes
   u64* R = F + NC;                   // complemented codes
   u32* V = reinterpret_cast<u32*>(streams + kWarps * 2 * NC) + warp * NC;
-  const int k = a.k;
-  const u64 kmask2 = (1ull << (2 * k)) - 1;
-  const u32 kmask1 = (1u << k) - 1;
   // stream index of window j's first base is j + first
-  const int first = a.s0 - (k - 1) + 32;
+  const int first = a.s0 - (a.k - 1) + 32;
 
   for (int r = warp; r < nr; r += kWarps) {
     const uint8_t* prow = sp + r * L4;
@@ -167,52 +231,65 @@ __global__ void __launch_bounds__(kWarps * 32) front_kernel(const FrontArgs a) {
         v = (vrow[(w >> 12) & 0xFFFu] >> (w >> 27)) & 1u;
         code = v ? (u32)(prow[w & 0xFFFu] >> (2 * ((w >> 24) & 3u))) & 3u : 0u;
       }
-      // lane i's base: forward bits 63-2i..62-2i, complement bits 2i+1..2i
-      const bool top = lane < 16;
-      const u32 fc = code << (2 * (15 - (lane & 15)));
-      const u32 rcm = (3u ^ code) << (2 * (lane & 15));
-      const u32 f_hi = __reduce_or_sync(kFull, top ? fc : 0u);
-      const u32 f_lo = __reduce_or_sync(kFull, top ? 0u : fc);
-      const u32 r_lo = __reduce_or_sync(kFull, top ? rcm : 0u);
-      const u32 r_hi = __reduce_or_sync(kFull, top ? 0u : rcm);
-      const u32 vb = __ballot_sync(kFull, v);
-      if (lane == 0) {
-        F[c] = ((u64)f_hi << 32) | f_lo;
-        R[c] = ((u64)r_hi << 32) | r_lo;
-        V[c] = vb;
-      }
-      n_valid += __popc(vb);
+      n_valid += __popc(put_word(code, v, lane, F, R, V, c));
     }
     __syncwarp();
 
     const long long row = (b0 + r) * a.Ls;
-    for (int j = lane; j < a.Ls; j += 32) {
-      const int t = first + j;
-      const int w = t >> 5;
-      const int sh = 2 * (t & 31);
-      const u64 fa = F[w], fb = F[w + 1], ra = R[w], rb = R[w + 1];
-      const u64 top = sh ? (fa << sh) | (fb >> (64 - sh)) : fa;
-      const u64 fwd = top >> (64 - 2 * k);
-      const u64 rc = (sh ? (ra >> sh) | (rb << (64 - sh)) : ra) & kmask2;
-      const u32 vbits = __funnelshift_r(V[w], V[w + 1], t & 31);
-      const u64 h = xxh64_8(fwd < rc ? fwd : rc);
-      u32 hi = (u32)(h >> 32);
-      u32 lo = (u32)h;
-      if (a.mod_mode == 0) {
-        hi = 0;
-        lo &= (u32)a.mod_arg;
-      } else if (a.mod_mode == 1) {
-        hi &= (u32)a.mod_arg;
-      } else {
-        hi = (u32)__umul64hi(a.mod_magic * hi, a.mod_arg);
-      }
-      a.idx_hi[row + j] = hi;
-      a.idx_lo[row + j] = lo;
-      a.win_valid[row + j] = (vbits & kmask1) == kmask1 ? 1 : 0;
-    }
+    for (int j = lane; j < a.Ls; j += 32)
+      emit_window(a, row + j, F, R, V, first + j);
     if (lane == 0) a.length[b0 + r] = n_valid;
     __syncwarp();  // F, R and V are rewritten for the warp's next read
   }
+}
+
+// Reads longer than kMaxShortL: one block a read, tiles of kTile
+// positions. Here L > k, so s0 = k - 1 and window j covers positions j to
+// j + k - 1: the stream needs no padding word, and window p0 + jj of the
+// tile at p0 starts at stream index jj.
+__global__ void __launch_bounds__(kWarps * 32)
+    front_long_kernel(const FrontArgs a) {
+  __shared__ u64 sF[kWarps][kTileWords + 1];
+  __shared__ u64 sR[kWarps][kTileWords + 1];
+  __shared__ u32 sV[kWarps][kTileWords + 1];
+  __shared__ int n_valid;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long b = blockIdx.x;
+  const int L4 = a.L >> 2;
+  const int L8 = a.L >> 3;
+  const uint8_t* prow = a.packed + b * L4;
+  const uint8_t* vrow = a.vmask + b * L8;
+  u64* F = sF[warp];
+  u64* R = sR[warp];
+  u32* V = sV[warp];
+  if (threadIdx.x == 0) n_valid = 0;
+  __syncthreads();
+  int my_valid = 0;
+  for (int p0 = warp * kTile; p0 < a.L; p0 += kWarps * kTile) {
+    for (int c = 0; c <= kTileWords; ++c) {
+      const int p = p0 + 32 * c + lane;
+      u32 code = 0, v = 0;
+      if (p < a.L) {
+        const int r4 = (p >= L4) + (p >= 2 * L4) + (p >= 3 * L4);
+        int r8 = 0;
+#pragma unroll
+        for (int m = 1; m < 8; ++m) r8 += p >= m * L8;
+        v = (vrow[p - r8 * L8] >> r8) & 1u;
+        code = v ? (u32)(prow[p - r4 * L4] >> (2 * r4)) & 3u : 0u;
+      }
+      const u32 vb = put_word(code, v, lane, F, R, V, c);
+      if (c < kTileWords) my_valid += __popc(vb);  // the last word is the next tile's
+    }
+    __syncwarp();
+    const int nj = min(kTile, a.Ls - p0);
+    for (int jj = lane; jj < nj; jj += 32)
+      emit_window(a, b * a.Ls + p0 + jj, F, R, V, jj);
+    __syncwarp();  // F, R and V are rewritten for the warp's next tile
+  }
+  if (lane == 0) atomicAdd(&n_valid, my_valid);
+  __syncthreads();
+  if (threadIdx.x == 0) a.length[b] = n_valid;
 }
 
 }  // namespace
@@ -245,6 +322,12 @@ extern "C" int shkk_front(const void* packed, const void* vmask, int B,
   a.idx_lo = (u32*)idx_lo;
   a.win_valid = (uint8_t*)win_valid;
   a.length = (int32_t*)length;
+  if (L > kMaxShortL) {
+    if (k > 32) return (int)cudaErrorInvalidValue;
+    if (B > 0)
+      front_long_kernel<<<B, kWarps * 32, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   // 32 reads a block, halved until the block fits (one read of L = 16384
   // takes 151 KB)
   a.reads = kReads;

@@ -191,8 +191,8 @@ _SIGNATURES = {
         _VP, _VP, _VP,  # packed, winners, best_cov
         _VP,  # stream
     ],
-    # packed, winners, B, W, out, out_len, offsets (B + 1), stream
-    "shkk_pairs": [_VP, _VP, _I, _I, _VP, _L, _VP, _VP],
+    # packed, winners, B, W, out, out_len, stream
+    "shkk_pairs": [_VP, _VP, _I, _I, _VP, _L, _VP],
     # idx_hi, idx_lo, win_valid, n, table, lgB, side, side_lgB, has_side,
     # side_stash, n_side_stash, tagv, payv, stream
     "shkk_probe_xl": [_VP, _VP, _VP, _L, _VP, _I, _VP, _I, _I, _VP, _I, _VP,

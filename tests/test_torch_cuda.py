@@ -8,20 +8,27 @@ buffer for wide geometries, every group tier, reads on both sides of the
 finish's warp cap (its warp path and its block path in one batch), k and
 Bloom-size variants of the front end (with a window count that is not a
 multiple of a warp, all-N reads, one read, rows that are not 16-byte
-aligned) and of the classic and xl probes, the xl geometries with and
-without a side table, reads shorter than k, the sharded Bloom
-filter's routing kernels at n in {1, 2, 8} shards, narrow and wide, with
-and without overflow (and reprobe from another thread on another
-stream), whole pipelines on random workloads, and the two experiment
-kernels (P1, P2) at small, mid and default sizes, P1 at a row count that
-is not a power of two, their refusals and their stream. Inputs are made with numpy from seeds; results must be equal,
-bit for bit.
+aligned, reads over 16384 bases) and of the classic and xl probes, the xl
+geometries with and without a side table, xl windows in flat views that
+are ragged or unaligned and windows that all need the side table, the
+pair stream at W = 31, one row, no emitted row, out_len below and above
+the pair count, unaligned verdicts and the sentinel collision at
+B = 65536, reads shorter than k, the sharded Bloom filter's routing
+kernels at n in {1, 2, 8} shards, narrow and wide, with and without
+overflow (and reprobe from another thread on another stream), whole
+pipelines on random workloads (one with a 17000-base read), and the two
+experiment kernels (P1, P2) at small, mid and default sizes, P1 at a row
+count that is not a power of two, their refusals and their stream.
+Inputs are made with numpy from seeds; results must be equal, bit for
+bit.
 
 On a machine with a card (and without jax, which tests/conftest.py
 imports), run:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -128,7 +135,7 @@ def test_front_end_kernel_edges(cuda, case):
     the kernel's 32 reads a block, rows that are not 16-byte aligned
     (the kernel stages them byte by byte), and reads so long that a block
     takes 8 of them (L = 16376, whose blocks' rows do not start 16-byte
-    aligned, and the largest L the kernel takes, 16384)."""
+    aligned, and the largest L of the kernel's staged path, 16384)."""
     rng = np.random.default_rng(17)
     k, L, B = {"shorter_than_k": (21, 16, 77), "long": (31, 16376, 20),
                "longest": (17, 16384, 9)}.get(case, (17, 104, 300))
@@ -148,6 +155,68 @@ def test_front_end_kernel_edges(cuda, case):
         equal(got, step.front_end_plain(packed, vmask, meta))
     if case == "all_n":
         assert not got[2][: B // 2].any() and (got[3][: B // 2] == 0).all()
+
+
+@pytest.mark.parametrize("k", [11, 17, 31])
+@pytest.mark.parametrize("L", [16392, 32768])
+def test_front_end_long_reads(cuda, L, k):
+    """Reads over 16384 bases take the front end's long-read kernel: every
+    window and the lengths equal the plain version, at each Bloom form,
+    on reads of random lengths with Ns, one all N and one of L bases."""
+    from shark_tpu_torch import kernels
+
+    rng = np.random.default_rng(L + k)
+    B = 40
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.02] = 4
+    lens = rng.integers(0, L + 1, size=B)
+    lens[:2] = L
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+    codes[2] = 4
+    packed, vmask = step.pack_codes(torch.from_numpy(codes).to(cuda))
+    for size_bits in (1 << 30, 1 << 33, 3 << 33):
+        meta = _Meta(k, size_bits)
+        kernels.LAUNCHES.reset()
+        got = step.front_end(packed, vmask, meta)
+        assert kernels.LAUNCHES.snapshot()["front"] == 1
+        equal(got, step.front_end_plain(packed, vmask, meta))
+    assert got[2][:2].any() and not got[2][2].any()
+
+
+def test_pipeline_long_read_cuda_matches_cpu(cuda, tmp_path):
+    """A sample holding one 17000-base read (its batch padded to 32768) at
+    a small batch size: the card's output bytes equal --backend cpu's."""
+    rng = np.random.default_rng(61)
+    genes = [BASES[rng.integers(0, 4, size=1500)] for _ in range(12)]
+    genes.append(BASES[rng.integers(0, 4, size=20000)])
+    fa = tmp_path / "g.fa"
+    fa.write_bytes(b"".join(b">g%02d\n%s\n" % (i, g.tobytes())
+                            for i, g in enumerate(genes)))
+    recs = []
+    for i in range(61):
+        if i == 23:
+            r = genes[-1][1500:18500].copy()
+        else:
+            g = genes[int(rng.integers(0, len(genes)))]
+            s = int(rng.integers(0, len(g) - 90))
+            r = g[s:s + 90].copy()
+        r[rng.random(r.size) < 0.01] = ord("N")
+        recs.append(b"@r%03d\n%s\n+\n%s\n" % (i, r.tobytes(), b"I" * r.size))
+    fq = tmp_path / "s.fq"
+    fq.write_bytes(b"".join(recs))
+    outs = {}
+    for backend in ("", "cpu"):
+        tag = backend or "gpu"
+        cfg = SharkConfig(
+            fasta_path=str(fa), sample1_path=str(fq),
+            out1_path=str(tmp_path / f"{tag}.fq"),
+            ssv_path=str(tmp_path / f"{tag}.ssv"), k=17, c=0.5,
+            batch_size=8, backend=backend, bf_gb=1)
+        run_pipeline(cfg)
+        outs[tag] = [(tmp_path / f"{tag}{x}").read_bytes()
+                     for x in (".ssv", ".fq")]
+    assert b"r023 g12" in outs["cpu"][0]
+    assert outs["gpu"] == outs["cpu"]
 
 
 @pytest.mark.parametrize("allow16", [True, False], ids=["entry16", "entry8"])
@@ -344,6 +413,62 @@ def test_extract_pairs_sentinel_collision(cuda):
     assert int(got[1]) == step.PAIR_SENTINEL
 
 
+def pairs_batch(B, W, emit, seed):
+    """numpy (packed i32[B], winners i32[B, W]) as the finish writes them:
+    nw in [0, W + 2] (and 31, saturated, for 5%), ascending genes below
+    65536, emitted with probability `emit`, 5% overflowed, 5% group
+    verdicts."""
+    rng = np.random.default_rng(seed)
+    nw = rng.integers(0, W + 3, size=B)
+    nw[rng.random(B) < 0.05] = 31
+    m = np.minimum(nw, W)
+    genes = np.sort(rng.integers(0, 65536, size=(B, W)), axis=1)
+    winners = np.where(np.arange(W)[None, :] < m[:, None], genes, -1
+                       ).astype(np.int32)
+    packed = (np.maximum(winners[:, 0], 0) | (np.minimum(nw, 31) << 16)
+              | ((rng.random(B) < emit).astype(np.int64) << 21)
+              | ((rng.random(B) < 0.05).astype(np.int64) << 22)
+              | ((rng.random(B) < 0.05).astype(np.int64) << 23)
+              ).astype(np.int32)
+    return packed, winners
+
+
+@pytest.mark.parametrize("case", [
+    "full_batch", "full_batch_below", "w31", "one_row", "one_row_below",
+    "no_emit", "odd_batch", "unaligned", "collision"])
+def test_extract_pairs_kernel_shapes(cuda, case):
+    """K4 at the bench batch (B = 65536, W = 16) with out_len above and
+    below the pair count, at W = 31, one row, a batch where no row emits,
+    a batch that is no multiple of the kernel's tile or of 4, verdicts
+    that are not 16-byte aligned, and the (65535, 65535) pair that encodes
+    to the sentinel at B = 65536, W = 16."""
+    B, W = {"w31": (3000, 31), "one_row": (1, 16), "one_row_below": (1, 16),
+            "odd_batch": (4099, 16)}.get(case, (65536, 16))
+    emit = 0.0 if case == "no_emit" else 0.8
+    packed, winners = pairs_batch(B + (case == "unaligned"), W, emit, B + W)
+    if case == "collision":
+        packed[-1] = 65534 | (2 << 16) | (1 << 21)
+        winners[-1, :2] = [65534, 65535]
+    elif B == 1:  # the one row emits three pairs
+        winners[0] = -1
+        winners[0, :3] = [5, 9, 700]
+        packed[0] = 5 | (3 << 16) | (1 << 21)
+    p = torch.from_numpy(packed).to(cuda)
+    w = torch.from_numpy(winners).to(cuda)
+    if case == "unaligned":
+        p, w = p[1:], w[1:]
+    total = int(step.extract_pairs_plain(p, w, B * W).ne(
+        step.PAIR_SENTINEL).sum())
+    cap = {"full_batch_below": total // 3, "one_row_below": 1}.get(
+        case, total + 1000)
+    got = step.extract_pairs(p, w, cap)
+    equal([got], [step.extract_pairs_plain(p, w, cap)])
+    assert (total == 0) == (case == "no_emit")
+    if case == "collision":  # the last real pair, then the colliding one
+        assert int(got[total - 1]) == (65535 << 16) | 65534
+        assert int(got[total]) == step.PAIR_SENTINEL
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_pipeline_cuda_matches_cpu(cuda, tmp_path, seed):
     """Random panels (paired or not, Ns, quality masking) through the
@@ -457,6 +582,53 @@ def test_probe_xl_kernel_geometries(cuda, geometry, k):
         assert hmeta.has_side == (geometry == "spill")
     for B in (8192, 65536):
         check_xl(dix, hmeta, windows(cuda, genes, B, k, size_bits, B + k))
+
+
+def side_windows(hi, lo, valid, dix, hmeta, n):
+    """n windows every one of which needs the side table (valid, in a
+    flagged bucket, no match there), cycled from those of (hi, lo,
+    valid), the side stash's own positions first."""
+    no_side = dataclasses.replace(hmeta, has_side=False)
+    tag, _ = hashed.probe_xl_plain(hi, lo, valid, dix.table, dix.side,
+                                   dix.side_stash, no_side)
+    bucket = lo.to(torch.int64) & ((1 << hmeta.lgB) - 1)
+    flagged = ((dix.table.view(torch.int32)[bucket, 0]
+                >> hashed.XL_FLAG_BIT) & 1) == 1
+    need = (valid & flagged & (tag == 0)).reshape(-1)
+    st = dix.side_stash.to(torch.int64)
+    live = st[:, 1] != 0xFFFFFFFF
+    assert live.any() and need.any()
+    picks = [torch.cat([st[live, c], w.to(torch.int64).reshape(-1)[need]])
+             for c, w in ((1, hi), (0, lo))]
+    at = torch.arange(n, device=lo.device) % picks[0].numel()
+    return (picks[0][at].to(torch.uint32), picks[1][at].to(torch.uint32),
+            torch.ones(n, dtype=torch.bool, device=lo.device))
+
+
+@pytest.mark.parametrize("view", ["ragged", "unaligned"])
+@pytest.mark.parametrize("geometry", ["natural", "spill", "full_side",
+                                      "no_side"])
+def test_probe_xl_kernel_views(cuda, geometry, view):
+    """Flat views of the windows whose count is no multiple of 4 (ragged:
+    16-byte aligned, so a kernel that takes windows in groups ends on a
+    short one) or that start one window in (unaligned) equal the plain
+    version, in each geometry: natural, spill (5% of the windows need the
+    side table), full_side (every window does, the side stash's positions
+    among them) and no_side (has_side false)."""
+    k, size_bits = 17, 1 << 26
+    genes, index = txome_like_index(k, size_bits)
+    geo = {"full_side": XL_GEOMETRIES["spill"]}.get(
+        geometry, XL_GEOMETRIES.get(geometry))
+    dix, hmeta = xl_tables(cuda, index, **geo)
+    assert hmeta.has_side == (geometry != "no_side")
+    hi, lo, valid = windows(cuda, genes, 8192, k, size_bits, 31)
+    if geometry == "full_side":
+        hi, lo, valid = side_windows(hi, lo, valid, dix, hmeta, 8192 * 88)
+    flat = [t.reshape(-1) for t in (hi, lo, valid)]
+    n = flat[0].numel()
+    wins = [t[: n - 3] if view == "ragged" else t[1:] for t in flat]
+    assert wins[0].numel() % 4
+    check_xl(dix, hmeta, wins)
 
 
 @pytest.mark.parametrize("size_bits", [1 << 30, 1 << 33, 3 << 33])
