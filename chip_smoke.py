@@ -9,9 +9,9 @@ Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi);
 2. build: nvcc for the eleven CUDA kernels (the nine csrc/*.cu, one nvcc
-   each, all started together), nvcc for the bare 16-byte gather that the
-   xl probe is held to (GATHER16_SRC, not a kernel of the port) and g++
-   for the C++ host engine, timed;
+   each, all started together), nvcc for the bare gathers that the
+   probes are held to (GATHER_SRC, not kernels of the port) and g++ for
+   the C++ host engine, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main paths' shapes (B = 8192 and 65536 reads,
    L = 104 single-end and 208 paired): exact equality (integer code,
@@ -31,18 +31,33 @@ Phases, each printing its lines; any failure exits non-zero:
    oracle); the 8-shard classifier's verdicts on a 65536-read batch must
    equal the classic classifier's. The record holds each kernel at
    B = 65536, L = 104, and the homolog index's kernels (K1-K4) also at
-   the CLI's batch B = 8192; for the front end, the finish, the pair
-   stream and the xl probe it adds their device time from torch.profiler
-   beside the CUDA-event time, which also holds the wrapper's host work.
+   the CLI's batch B = 8192; for the front end, the hashed probe, the
+   finish, the pair stream, the xl probe and the owner probe it adds
+   their device time from torch.profiler beside the CUDA-event time,
+   which also holds the wrapper's host work.
    Each batch prints how many reads took the finish's block path, held to
    finish_heavy_reads_plain. A batch of 64 reads at L = 32768 holds the
    front end's long-read kernel to its plain version. At the record shape
    the xl probe's footprint line times it with every bucket masked into
    the table's first 32 MB and 256 MB, on the whole table, and without
    its side table (those three are wrong, timing only), beside the bare
-   16-byte gather at the same bucket indices. The library forms of the
-   owner probe and the return compute their whole function (indices,
-   every slot or window, zeros on a miss);
+   16-byte gather at the same bucket indices. At the record shape and at
+   the CLI's batch the hashed probe's floor line gives its stash (real and
+   padded rows, windows matching a row) and times it beside itself with
+   a stash of 32 padding rows (wrong results, timing only), P2's kernel
+   (resident_match) on the hashed probe's own windows and table (equal to
+   it on every window outside the stash) and the bare 32-byte gather of
+   the same buckets. At the record shape the owner probe's floor line
+   gives its sector-counted bound (16 bytes a slot, 32 a distinct word
+   row and a distinct pay row) and times it beside the bare two-level
+   gather of the same rows (one kernel of dependent loads, and each
+   level alone), beside itself with the routed words masked into each
+   shard's first 4 MB, 32 MB and 256 MB of rows (wrong results, timing
+   only), and beside the classic probe on the same windows. Those lines
+   give event ms, device ms and back-to-back ms (20 launches between two
+   events, L2 warm). The library forms of the owner probe and the return
+   compute their whole function (indices, every slot or window, zeros on
+   a miss);
 4. end to end through the CLI entry point (shark_tpu_torch.cli.main, what
    `python -m shark_tpu_torch` runs) with the default flags
    -k 17 -c 0.6 -b 1, on workloads made with numpy from a seed at
@@ -337,72 +352,209 @@ def device_records(prof):
     return out
 
 
-# The floor K6 is held to (as P1 holds K5 and K7b): a bare gather of the
-# 16-byte table rows at the xl probe's bucket indices, four rows a thread
-# in flight, each row folded to one word so the loads cannot be dropped.
-# Not a kernel of the port: it computes nothing the classify path needs.
-GATHER16_SRC = r"""
+# The floors the probes are held to (as P1 holds K5 and K7b): bare gathers
+# of table rows at the probes' own indices, each row folded to one word so
+# that the loads cannot be dropped, four indices a thread with every load
+# issued before the first fold. rows16 / rows32 gather 16- or 32-byte rows
+# (the xl probe's bucket; the hashed probe's entry16 bucket), rows8 8-byte
+# rows (a (word, rank) or pay row); two_level gathers a word row and then,
+# where pidx >= 0, a pay row whose address depends on the loaded word (the
+# owner probe's two dependent reads without its arithmetic). Not kernels
+# of the port: they compute nothing the classify path needs.
+GATHER_SRC = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
-__global__ void gather16(const uint4* __restrict__ table,
-                         const int32_t* __restrict__ idx, long long n,
-                         uint32_t* __restrict__ out) {
+typedef uint32_t u32;
+__device__ __forceinline__ uint4 ld16(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint2 ld8(const uint2* p) {
+  uint2 v;
+  asm volatile("ld.global.v2.u32 {%0, %1}, [%2];"
+      : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+template <int R>
+__global__ void gather_rows(const uint4* __restrict__ table,
+                            const int32_t* __restrict__ idx, long long n,
+                            u32* __restrict__ out) {
   const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  uint4 v[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    v[r] = make_uint4(0, 0, 0, 0);
-    if (i0 + r < n) {
-      const uint4* p = table + (uint32_t)idx[i0 + r];
-      asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
-          : "=r"(v[r].x), "=r"(v[r].y), "=r"(v[r].z), "=r"(v[r].w)
-          : "l"(p));
-    }
-  }
+  uint4 v[4][R];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
-    if (i0 + r < n) out[i0 + r] = v[r].x ^ v[r].y ^ v[r].z ^ v[r].w;
+#pragma unroll
+    for (int c = 0; c < R; ++c)
+      v[r][c] = i0 + r < n ? ld16(table + (uint64_t)(u32)idx[i0 + r] * R + c)
+                           : make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    u32 x = 0;
+#pragma unroll
+    for (int c = 0; c < R; ++c) x ^= v[r][c].x ^ v[r][c].y ^ v[r][c].z ^ v[r][c].w;
+    if (i0 + r < n) out[i0 + r] = x;
+  }
 }
-extern "C" int gather16_launch(const void* table, const void* idx,
-                               long long n, void* out, void* stream) {
-  if (n > 0)
-    gather16<<<(unsigned)((n + 1023) / 1024), 256, 0, (cudaStream_t)stream>>>(
-        (const uint4*)table, (const int32_t*)idx, n, (uint32_t*)out);
+__global__ void gather_rows8(const uint2* __restrict__ table,
+                             const int32_t* __restrict__ idx, long long n,
+                             u32* __restrict__ out) {
+  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  uint2 v[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    v[r] = i0 + r < n ? ld8(table + (u32)idx[i0 + r]) : make_uint2(0, 0);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (i0 + r < n) out[i0 + r] = v[r].x ^ v[r].y;
+}
+__global__ void gather_two_level(const uint2* __restrict__ words,
+                                 const int32_t* __restrict__ widx,
+                                 const uint2* __restrict__ pay,
+                                 const int32_t* __restrict__ pidx,
+                                 long long n, u32 zero,
+                                 u32* __restrict__ out) {
+  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  uint2 w[4];
+  int32_t p[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    w[r] = i0 + r < n ? ld8(words + (u32)widx[i0 + r]) : make_uint2(0, 0);
+    p[r] = i0 + r < n ? pidx[i0 + r] : -1;
+  }
+  uint2 q[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    q[r] = p[r] >= 0 ? ld8(pay + ((u32)p[r] ^ (w[r].x & zero)))
+                     : make_uint2(0, 0);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (i0 + r < n) out[i0 + r] = w[r].x ^ w[r].y ^ q[r].x ^ q[r].y;
+}
+static unsigned grid4(long long n) { return (unsigned)((n + 1023) / 1024); }
+extern "C" int gather_rows_launch(const void* table, const void* idx,
+                                  long long n, int row_bytes, void* out,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0 && row_bytes == 8)
+    gather_rows8<<<grid4(n), 256, 0, st>>>(
+        (const uint2*)table, (const int32_t*)idx, n, (u32*)out);
+  else if (n > 0 && row_bytes == 16)
+    gather_rows<1><<<grid4(n), 256, 0, st>>>(
+        (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
+  else if (n > 0 && row_bytes == 32)
+    gather_rows<2><<<grid4(n), 256, 0, st>>>(
+        (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
+  else if (n > 0)
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+extern "C" int gather_two_level_launch(const void* words, const void* widx,
+                                       const void* pay, const void* pidx,
+                                       long long n, void* out, void* stream) {
+  if (n > 0)
+    gather_two_level<<<grid4(n), 256, 0, (cudaStream_t)stream>>>(
+        (const uint2*)words, (const int32_t*)widx, (const uint2*)pay,
+        (const int32_t*)pidx, n, 0u, (u32*)out);
+  return (int)cudaGetLastError();
+}
+extern "C" int set_l2_fetch_granularity(long long bytes, long long* was) {
+  size_t old = 0;
+  cudaError_t e = cudaDeviceGetLimit(&old, cudaLimitMaxL2FetchGranularity);
+  if (e == cudaSuccess) {
+    *was = (long long)old;
+    if (bytes > 0)
+      e = cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
+  }
+  return (int)e;
 }
 """
 
 
-def build_gather16():
-    """nvcc GATHER16_SRC into build/gather16/ (beside the kernels' build
-    directory); returns a function (table u32[rows, 4], idx i32[n]) ->
-    u32[n]."""
-    import ctypes
+class Gathers:
+    """GATHER_SRC nvcc'd into build/gathers/ (beside the kernels' build
+    directory), called on the current stream."""
 
-    from shark_tpu_torch import kernels
+    def __init__(self):
+        import ctypes
 
-    d = os.path.join(HERE, "build", "gather16")
-    os.makedirs(d, exist_ok=True)
-    src, so = os.path.join(d, "gather16.cu"), os.path.join(d, "libgather16.so")
-    with open(src, "w") as f:
-        f.write(GATHER16_SRC)
-    r = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
-                        "-o", so, src], capture_output=True, text=True)
-    need(r.returncode == 0, "nvcc failed for the 16-byte gather\n"
-         + r.stdout + r.stderr)
-    fn = ctypes.CDLL(so).gather16_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + \
-        [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+        from shark_tpu_torch import kernels
 
-    def gather(table, idx):
-        out = torch.empty(idx.numel(), dtype=torch.uint32, device=idx.device)
-        rc = fn(table.data_ptr(), idx.data_ptr(), idx.numel(),
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        need(rc == 0, f"gather16 launch failed ({rc})")
+        d = os.path.join(HERE, "build", "gathers")
+        os.makedirs(d, exist_ok=True)
+        src = os.path.join(d, "gathers.cu")
+        so = os.path.join(d, "libgathers.so")
+        with open(src, "w") as f:
+            f.write(GATHER_SRC)
+        r = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                            "-shared", "-o", so, src],
+                           capture_output=True, text=True)
+        need(r.returncode == 0, "nvcc failed for the bare gathers\n"
+             + r.stdout + r.stderr)
+        lib = ctypes.CDLL(so)
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        self._rows = lib.gather_rows_launch
+        self._rows.argtypes = [vp, vp, ll, ctypes.c_int, vp, vp]
+        self._two = lib.gather_two_level_launch
+        self._two.argtypes = [vp, vp, vp, vp, ll, vp, vp]
+        self._l2 = lib.set_l2_fetch_granularity
+        self._l2.argtypes = [ll, ctypes.POINTER(ll)]
+        for fn in (self._rows, self._two, self._l2):
+            fn.restype = ctypes.c_int
+
+    @staticmethod
+    def _out(idx):
+        return torch.empty(idx.numel(), dtype=torch.uint32,
+                           device=idx.device)
+
+    def rows(self, table, idx, row_bytes):
+        """u32[n]: the xor of the words of row idx[i] (i32) of `table`,
+        read as rows of row_bytes (8, 16 or 32)."""
+        out = self._out(idx)
+        rc = self._rows(table.data_ptr(), idx.data_ptr(), idx.numel(),
+                        row_bytes, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+        need(rc == 0, f"gather_rows launch failed ({rc})")
         return out
 
-    return gather
+    def two_level(self, words, widx, pay, pidx):
+        """u32[n]: the xor of words' 8-byte row widx[i] and, where
+        pidx[i] >= 0, pay's 8-byte row pidx[i], loaded after the word."""
+        out = self._out(widx)
+        rc = self._two(words.data_ptr(), widx.data_ptr(), pay.data_ptr(),
+                       pidx.data_ptr(), widx.numel(), out.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+        need(rc == 0, f"gather_two_level launch failed ({rc})")
+        return out
+
+    def l2_fetch_granularity(self, nbytes=0):
+        """The device's cudaLimitMaxL2FetchGranularity before this call;
+        sets it to nbytes when nbytes > 0 (device-wide: measurement
+        only)."""
+        import ctypes
+
+        was = ctypes.c_longlong(0)
+        rc = self._l2(nbytes, ctypes.byref(was))
+        need(rc == 0, f"cudaDeviceSetLimit(L2 fetch granularity) failed "
+                      f"({rc})")
+        return was.value
+
+
+def xor_rows(rows32):
+    """Each row of an int32 [n, w] tensor folded to one word by xor, as
+    the bare gathers fold it; u32[n]."""
+    x = rows32[:, 0]
+    for c in range(1, rows32.shape[1]):
+        x = x ^ rows32[:, c]
+    return x.view(torch.uint32)
+
+
+def timings(fn):
+    """(event ms, device ms, back-to-back ms) of fn()."""
+    from shark_tpu_torch.utils.timers import cuda_ms
+
+    return (cuda_ms(fn, reps=REPS), device_ms(fn), back_to_back_ms(fn))
 
 
 def back_to_back_ms(fn, n=20):
@@ -421,7 +573,7 @@ def back_to_back_ms(fn, n=20):
     return a.elapsed_time(b) / n
 
 
-def xl_footprint(args6, hmeta, gather16, timer):
+def xl_footprint(args6, hmeta, gathers, timer):
     """K6 on the same windows with idx_lo's bucket bits masked so that every
     bucket falls in the table's first 32 MB (L2-resident) or 256 MB, on the
     whole table, and with has_side false (these three give wrong results:
@@ -452,14 +604,165 @@ def xl_footprint(args6, hmeta, gather16, timer):
         out[tag] = (timer(fn), device_ms(fn), back_to_back_ms(fn))
     bidx = (lo & bmask)[win_valid].to(torch.int32)
     rows = args6[3].view(torch.int32)[bidx.long()]
-    same("gather16", [gather16(args6[3], bidx)],
-         [(rows[:, 0] ^ rows[:, 1] ^ rows[:, 2] ^ rows[:, 3]).view(
-             torch.uint32)])
+    same("gather16", [gathers.rows(args6[3], bidx, 16)], [xor_rows(rows)])
     del rows
     def floor():
-        return gather16(args6[3], bidx)
+        return gathers.rows(args6[3], bidx, 16)
     out["gather16"] = (timer(floor), device_ms(floor), back_to_back_ms(floor))
     out["gather16_rows"] = int(bidx.numel())
+    return out
+
+
+def stash_counts(stash):
+    """(rows of the stash that are not padding, all rows): a padding row
+    is 0xFFFFFFFF in all four words."""
+    pad = (stash.view(torch.int32) == -1).all(1)
+    return int((~pad).sum()), stash.shape[0]
+
+
+def resident_operands(idx_hi, idx_lo, win_valid, lgB):
+    """P2's operands for the hashed probe's windows on an entry16 8-slot
+    table of 2^lgB buckets: rows = bucket >> 4 (i32) and want = rest |
+    (bucket & 15) << 14, 0xFFFFFFFF for an invalid window (u32), flat."""
+    lo = idx_lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = idx_hi.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bucket = lo & ((1 << lgB) - 1)
+    rest = ((lo >> lgB) | (hi << (32 - lgB))) & 0xFFFFFFFF
+    want = torch.where(win_valid, rest | ((bucket & 15) << 14), 0xFFFFFFFF)
+    return ((bucket >> 4).to(torch.int32).reshape(-1),
+            want.reshape(-1).to(torch.uint32))
+
+
+def probe_floor(args2, stash_rows, gathers):
+    """K2 on its own windows and table beside what it is held to, as
+    {run: (event ms, device ms, back-to-back ms)} and counts: K2 itself;
+    K2 with its stash replaced by 32 padding rows (wrong results where a
+    window matches a stash row: timing only); P2's kernel (resident_match)
+    on the same buckets and keys of an entry16 8-slot table, which is K2's
+    bucket work without the stash, held equal to K2 on every window that
+    matches no stash row; and the bare 32-byte gather of the same buckets
+    (an entry16 8-slot bucket; an entry8 bucket is 64 bytes, gathered as
+    two 32-byte rows)."""
+    from shark_tpu_torch.classify import hashed
+    from shark_tpu_torch.experiments import resident_match as R
+
+    idx_hi, idx_lo, win_valid, table, stash, hmeta = args2
+    lo = idx_lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = idx_hi.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    real, padded = stash_counts(stash)
+    st = stash.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    in_stash = torch.zeros_like(win_valid)
+    for r in range(padded):
+        if not bool((st[r] == 0xFFFFFFFF).all()):
+            in_stash |= (lo == st[r, 0]) & (hi == st[r, 1])
+    in_stash &= win_valid
+    out = {"stash_rows": real, "stash_rows_padded": padded,
+           "stash_windows": int(in_stash.sum())}
+    out["probe"] = timings(lambda: hashed.probe_hashed(*args2, stash_rows))
+    pad32 = torch.full((32, 4), -1, dtype=torch.int32,
+                       device=stash.device).view(torch.uint32)
+    out["padding_stash"] = timings(
+        lambda: hashed.probe_hashed(*args2[:4], pad32, hmeta, 0))
+    mask = (1 << hmeta.lgB) - 1
+    bucket = lo & mask
+    tagv, payv = hashed.probe_hashed(*args2, stash_rows)
+    if hmeta.entry16 and hmeta.slots == 8:
+        rows, want = resident_operands(idx_hi, idx_lo, win_valid, hmeta.lgB)
+        t128 = table.view(-1, 128)
+        got = R.resident_match(rows, want, t128)
+        keep = ~in_stash.reshape(-1)
+        g32 = got.view(torch.int32)
+        same("resident_match on the hashed probe's windows",
+             [g32[keep, 0], g32[keep, 1]],
+             [tagv.view(torch.int32).reshape(-1)[keep],
+              payv.view(torch.int32).reshape(-1)[keep]])
+        out["resident_match"] = timings(
+            lambda: R.resident_match(rows, want, t128))
+    bidx = bucket[win_valid].to(torch.int32)
+    row_bytes = table[0].numel() * 4
+    per = row_bytes // 32
+    gidx = (bidx[:, None] * per + torch.arange(
+        per, device=bidx.device, dtype=torch.int32)).reshape(-1)
+    t32 = table.view(torch.int32).reshape(-1, 8)
+    same("gather32", [gathers.rows(table, gidx, 32)],
+         [xor_rows(t32[gidx.long()])])
+    out["gather32"] = timings(lambda: gathers.rows(table, gidx, 32))
+    out["gather32_rows"] = int(gidx.numel())
+    return out
+
+
+def owner_probe_rows(recv, tables, wps):
+    """(widx, pidx, hit) of the slots H owners received, int64: the global
+    (word, rank) row of every routed slot, the global pay row it leads to
+    (-1 where it misses or its rank is past the pay rows) and whether it
+    hits."""
+    from shark_tpu_torch.classify import step
+
+    H = recv.shape[0]
+    rows_max = tables.pay.shape[1]
+    q = recv.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    routed = q[..., 0] < wps
+    h = torch.arange(H, device=recv.device).view(-1, 1, 1).expand_as(routed)
+    widx = (h * wps + q[..., 0])[routed]
+    wr = tables.bf_rank.view(torch.int32).reshape(-1, 2)[widx].to(
+        torch.int64) & 0xFFFFFFFF
+    bit = q[..., 1][routed] & 31
+    rank = wr[:, 1] + step._popcount32(
+        wr[:, 0] & ((torch.ones_like(bit) << bit) - 1))
+    hit = (((wr[:, 0] >> bit) & 1) == 1) & (rank < rows_max)
+    return widx, torch.where(hit, h[routed] * rows_max + rank, -1), hit
+
+
+def masked_words(recv, wps, rows_log2):
+    """recv with every routed word masked into its shard's first
+    2^rows_log2 (word, rank) rows (wrong results: timing only)."""
+    q = recv.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    keep = min((1 << rows_log2) - 1, wps - 1)
+    q[..., 0] = torch.where(q[..., 0] < wps, q[..., 0] & keep, q[..., 0])
+    return torch.where(q >= 1 << 31, q - (1 << 32), q).to(
+        torch.int32).view(torch.uint32)
+
+
+def shard_probe_floor(recv, tables, wps, gathers):
+    """K7b on the slots the owners received beside what it is held to, as
+    {run: (event ms, device ms, back-to-back ms)} and counts: K7b; the
+    bare two-level gather of the same rows (word rows, then the pay rows
+    of the hits) in one kernel with dependent loads, and each level alone
+    (two kernels of independent loads, gather_words and gather_pays); K7b
+    with every routed word masked into each shard's first 4 MB, 32 MB and
+    256 MB of (word, rank) rows (wrong results, timing only); and the
+    sector-counted bound: 16 bytes a slot, 32 a distinct word row and 32
+    a distinct pay row."""
+    from shark_tpu_torch.parallel import sharded_bf as sb
+
+    bf_rank, pay = tables.bf_rank, tables.pay
+    widx, pidx, hit = owner_probe_rows(recv, tables, wps)
+    bfr = bf_rank.view(torch.int32).reshape(-1, 2)
+    payr = pay.view(torch.int32).reshape(-1, 2)
+    n_slots = recv.numel() // 2
+    words = int(torch.unique(widx).numel())
+    pays = int(torch.unique(pidx[hit]).numel())
+    out = {"slots": n_slots, "routed": int(widx.numel()),
+           "hits": int(hit.sum()), "word_rows": words, "pay_rows": pays,
+           "sector_bound_ms": (n_slots * 16 + 32 * words + 32 * pays)
+           / PEAK_BYTES_S * 1e3}
+    out["shard_probe"] = timings(lambda: sb.shard_probe(recv, bf_rank, pay))
+    widx32 = widx.to(torch.int32)
+    pidx32 = pidx.to(torch.int32)
+    ridx32 = pidx32[hit]
+    pw = torch.where(hit[:, None], payr[torch.clamp(pidx, min=0)], 0)
+    same("two-level gather",
+         [gathers.two_level(bf_rank, widx32, pay, pidx32)],
+         [xor_rows(torch.cat([bfr[widx], pw], 1))])
+    out["two_level"] = timings(
+        lambda: gathers.two_level(bf_rank, widx32, pay, pidx32))
+    out["gather_words"] = timings(
+        lambda: gathers.rows(bf_rank, widx32, 8))
+    out["gather_pays"] = timings(lambda: gathers.rows(pay, ridx32, 8))
+    for tag, rows_log2 in (("4MB", 19), ("32MB", 22), ("256MB", 25)):
+        m = masked_words(recv, wps, rows_log2)
+        out[f"mask_{tag}"] = timings(
+            lambda m=m: sb.shard_probe(m, bf_rank, pay))
     return out
 
 
@@ -488,7 +791,7 @@ def pair_cap(packed, B, W):
                  if min(lv, B * W) >= total + 2), B * W), total
 
 
-def check_kernels(clf, genes, shapes, record_shape, timer):
+def check_kernels(clf, genes, shapes, record_shape, timer, gathers):
     """Phase 3. Returns the per-kernel records at record_shape and at
     CLI_SHAPE."""
     from shark_tpu_torch.classify import hashed, step
@@ -522,7 +825,9 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
 
         # K2 -------------------------------------------------------------
         args2 = (idx_hi, idx_lo, win_valid, dix.table, dix.stash, hmeta)
-        k2 = hashed.probe_hashed(*args2)
+        probe = functools.partial(hashed.probe_hashed, *args2,
+                                  dix.stash_rows)
+        k2 = probe()
         e2 = same("probe_hashed", k2, hashed.probe_hashed_plain(*args2))
         mask = (1 << hmeta.lgB) - 1
         bucket = idx_lo.view(torch.int32).to(torch.int64) & mask
@@ -532,11 +837,18 @@ def check_kernels(clf, genes, shapes, record_shape, timer):
         tbl = dix.table.view(torch.int32).reshape(dix.table.shape[0], -1)
         rows["probe"] = dict(
             err=e2,
-            ms=timer(lambda: hashed.probe_hashed(*args2)),
+            ms=timer(probe),
             plain_ms=timer(lambda: hashed.probe_hashed_plain(*args2)),
             library_ms=timer(lambda: tbl[bucket]),
             bound=bound(nbytes, n * (4 * tbl.shape[1] + 10)),
+            device_ms=device_ms(probe),
         )
+        if (B, L) in (record_shape, CLI_SHAPE):
+            fl = probe_floor(args2, dix.stash_rows, gathers)
+            say(f"kernel probe_hashed floor B={B} L={L} (event ms, device "
+                f"ms, back-to-back ms; padding_stash gives wrong results, "
+                f"timing only): {json.dumps(fl)}")
+            rows["probe"]["floor"] = fl
         tagv, payv = k2
 
         # K3 -------------------------------------------------------------
@@ -677,7 +989,7 @@ def xl_geometry(clf):
 
 
 def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer,
-                        gather16):
+                        gathers):
     """Phase 3 on the transcriptome index: K6 (xl, through xclf's tables)
     and K5 (classic, through cclf's) on the same windows. Returns their
     record at record_shape."""
@@ -727,7 +1039,7 @@ def check_txome_kernels(xclf, cclf, genes, shapes, record_shape, timer,
             device_ms=device_ms(lambda: hashed.probe_xl(*args6)),
         )
         if (B, L) == record_shape:
-            fp = xl_footprint(args6, hmeta, gather16, timer)
+            fp = xl_footprint(args6, hmeta, gathers, timer)
             sectors = n * 17 + touched * 32 + side_touched * 64
             say("kernel probe_xl footprint B={} L={} (event ms, device ms, "
                 "back-to-back ms; masked runs and no_side give wrong "
@@ -774,7 +1086,7 @@ def _transposed(buf):
         torch.uint32)
 
 
-def route_rows(windows, dix, n, wps, wide, cap, timer):
+def route_rows(windows, dix, n, wps, wide, cap, timer, gathers=None):
     """K7a, K7b and K7c on [n, b, Ls] windows against the shard tables
     `dix`, each against its plain version (exact), timed beside its plain
     version and one PyTorch library call, with its bound. Returns (rows,
@@ -811,23 +1123,14 @@ def route_rows(windows, dix, n, wps, wide, cap, timer):
     k7b = sb.shard_probe(recv, dix.bf_rank, dix.pay)
     eb = same("shard_probe", [k7b],
               [sb.shard_probe_plain(recv, dix.bf_rank, dix.pay)])
-    q = recv.to(torch.int64)
-    routed = q[..., 0] < wps
-    h = torch.arange(recv.shape[0], device=dev).view(-1, 1, 1).expand_as(
-        routed)
-    widx = (h * wps + q[..., 0])[routed]
-    wr = dix.bf_rank.view(torch.int32).reshape(-1, 2)[widx].to(
-        torch.int64) & 0xFFFFFFFF
-    bit = q[..., 1][routed] & 31
-    hit = ((wr[:, 0] >> bit) & 1) == 1
-    low = wr[:, 0] & ((torch.ones_like(bit) << bit) - 1)
+    widx, pidx, hit = owner_probe_rows(recv, dix, wps)
     rows_max = dix.pay.shape[1]
-    ridx = (h[routed] * rows_max + wr[:, 1] + step._popcount32(low))[hit]
     bfr = dix.bf_rank.view(torch.int32).reshape(-1, 2)
     payr = dix.pay.view(torch.int32).reshape(-1, 2)
     n_slots = recv.numel() // 2
     recv32 = recv.view(torch.int32)
-    hh = h.to(torch.int32)
+    hh = torch.arange(recv.shape[0], device=dev,
+                      dtype=torch.int32).view(-1, 1, 1)
 
     def probe_library():
         """The whole of K7b in PyTorch's gathers: every slot's word row,
@@ -851,9 +1154,15 @@ def route_rows(windows, dix, n, wps, wide, cap, timer):
                                                     dix.pay)),
         library_ms=timer(probe_library),
         bound=bound(n_slots * 16 + int(torch.unique(widx).numel()) * 8
-                    + int(torch.unique(ridx).numel()) * 8,
-                    int(routed.sum()) * 12),
+                    + int(torch.unique(pidx[hit]).numel()) * 8,
+                    int(widx.numel()) * 12),
+        device_ms=device_ms(lambda: sb.shard_probe(recv, dix.bf_rank,
+                                                   dix.pay)),
     )
+    if gathers is not None:
+        fl = shard_probe_floor(recv, dix, wps, gathers)
+        rows["shard_probe"]["floor"] = fl
+        rows["shard_probe"]["sector_bound_ms"] = fl["sector_bound_ms"]
 
     # K7c ------------------------------------------------------------------
     back = _transposed(k7b)
@@ -886,7 +1195,8 @@ def route_rows(windows, dix, n, wps, wide, cap, timer):
     return rows, stats
 
 
-def check_sharded_kernels(tindex, cclf, genes, shapes, record_shape, timer):
+def check_sharded_kernels(tindex, cclf, genes, shapes, record_shape, timer,
+                          gathers):
     """Phase 3 on the transcriptome index split into SHARDS shards on the
     card: K7a-c at every shape, at one shard and with the wide router at
     the record shape, with overflow, the router alone at a > 2^36-bit
@@ -915,17 +1225,28 @@ def check_sharded_kernels(tindex, cclf, genes, shapes, record_shape, timer):
         shp = (n, B // n, hi.shape[1])
         return codes, (hi.view(shp), lo.view(shp), valid.view(shp))
 
-    def run(tag, B, L, n, tables, wide, cap):
+    def run(tag, B, L, n, tables, wide, cap, floor=False):
         codes, wins = windows_of(B, L, n)
         rows, st = route_rows(wins, tables, n, tables.bf_rank.shape[1],
-                              wide, cap, timer)
+                              wide, cap, timer, gathers if floor else None)
         say_rows(rows, B, L)
+        if floor:
+            # K5 on the same windows, through the unsharded classic tables
+            args5 = (*(t.reshape(B, -1) for t in wins), cclf.dix.bf_rank,
+                     cclf.dix.pay)
+            fl = rows["shard_probe"]["floor"]
+            fl["classic"] = timings(lambda: step.probe_tags(*args5))
+            say(f"kernel shard_probe floor B={B} L={L} ({tag}; event ms, "
+                f"device ms, back-to-back ms; the masked runs give wrong "
+                f"results, timing only; classic = probe_tags on the same "
+                f"windows): {json.dumps(fl)}")
         say(f"kernel batch B={B} L={L} ({tag}): {json.dumps(st)}")
         return codes, rows, st
 
     for B, L in shapes:
         _, rows, st = run(f"{SHARDS} shards", B, L, SHARDS, dix, False,
-                          sclf._probe_cap(B // SHARDS, L))
+                          sclf._probe_cap(B // SHARDS, L),
+                          floor=(B, L) == record_shape)
         need(sum(st["overflow"]) == 0, f"sharded B={B} L={L}: overflow")
         if (B, L) == record_shape:
             record = rows
@@ -1376,7 +1697,7 @@ def main() -> int:
 
     def build_floor():
         try:
-            gpp["gather16"] = build_gather16()
+            gpp["gathers"] = Gathers()
         except SmokeFailure as e:
             gpp["err"] = e
 
@@ -1388,7 +1709,7 @@ def main() -> int:
         th.join()
     if "err" in gpp:
         raise SmokeFailure(str(gpp["err"]))
-    gather16 = gpp["gather16"]
+    gathers = gpp["gathers"]
     kernels.lib()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1414,7 +1735,7 @@ def main() -> int:
     record_shape = shapes[0] if args.quick else RECORD_SHAPE
     timer = functools.partial(cuda_ms, reps=REPS)
     record, cli_record = check_kernels(clf, hgenes, shapes, record_shape,
-                                       timer)
+                                       timer, gathers)
     del clf
 
     # ... and K5/K6 on the transcriptome's index, which the C++ engine
@@ -1453,12 +1774,12 @@ def main() -> int:
             f"{cclf.dix.bf_rank.numel() * 4 / 1e9:.2f} GB, pay "
             f"{cclf.dix.pay.numel() * 4 / 1e9:.2f} GB)")
         record.update(check_txome_kernels(xclf, cclf, tgenes, shapes,
-                                          record_shape, timer, gather16))
+                                          record_shape, timer, gathers))
         del xclf
         gc.collect()
         torch.cuda.empty_cache()
         record.update(check_sharded_kernels(tindex, cclf, tgenes, shapes,
-                                            record_shape, timer))
+                                            record_shape, timer, gathers))
         del cclf, tindex
         gc.collect()
         torch.cuda.empty_cache()
@@ -1519,8 +1840,9 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         }
-        if "device_ms" in r:
-            row["device_ms"] = r["device_ms"]
+        for key in ("device_ms", "sector_bound_ms"):
+            if key in r:
+                row[key] = r[key]
         if name in cli_record:  # the same kernel at the CLI's batch
             c = cli_record[name]
             row["cli_batch"] = {
@@ -1536,6 +1858,10 @@ def main() -> int:
                        "bounds_bytes_ops_ms": {
                            KERNEL_INFO[n][0]: record[n]["bound"][2:]
                            for n in KERNEL_INFO},
+                       "floors": {KERNEL_INFO[n][0]: record[n][f]
+                                  for n in KERNEL_INFO
+                                  for f in ("floor", "footprint")
+                                  if f in record[n]},
                        "record_shape": RECORD_SHAPE,
                        "cli_shape": CLI_SHAPE, "launches": launches,
                        "e2e": e2e_stats}, f, indent=1)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's panel workload (a) end to end through the CLI of
-two checkouts in turns, on one CUDA card, and print each run's classify
-rate.
+"""Run chip_smoke.py's panel workload (a), or with --paired its paired
+workload (c), end to end through the CLI of two checkouts in turns, on
+one CUDA card, and print each run's classify rate.
 
-    python3 scripts/alternate_panel.py CHECKOUT_A CHECKOUT_B [PAIRS]
+    python3 scripts/alternate_panel.py [--paired] CHECKOUT_A CHECKOUT_B [PAIRS]
 
 The workload is chip_smoke.py's run (a): 500 genes of 1500 bp and
-500,000 single-end 100 bp reads with 2% errors, made with its generators
-and seed, written once under build/ of the checkout holding this script.
+500,000 single-end 100 bp reads with 2% errors, or its run (c): the same
+genes and 50,000 innie pairs, made with its generators and seed, written
+once under build/ of the checkout holding this script.
 Each run is a fresh `python -m shark_tpu_torch` process in its checkout
 with the smoke's flags (-k 17 -c 0.6 -b 1); the rate is reads /
 classify_s from --stats-json. One warm-up run per checkout builds its
@@ -31,13 +32,15 @@ sys.path.insert(0, HERE)
 import chip_smoke as cs  # noqa: E402
 
 
-def run(checkout, d, fa, fq, tag):
+def run(checkout, d, fa, files, tag):
     """One CLI run in `checkout`; returns (reads/s, ssv bytes)."""
     out = os.path.join(d, tag)
-    argv = [sys.executable, "-m", "shark_tpu_torch", "-r", fa, "-1", fq,
-            "-o", out + ".fq", "--ssv", out + ".ssv", "-k", str(cs.K),
-            "-c", str(cs.C), "-b", str(cs.BF_GB),
-            "--stats-json", out + ".json"]
+    argv = [sys.executable, "-m", "shark_tpu_torch", "-r", fa,
+            "-1", files["all", "1"], "-o", out + ".fq", "--ssv",
+            out + ".ssv", "-k", str(cs.K), "-c", str(cs.C), "-b",
+            str(cs.BF_GB), "--stats-json", out + ".json"]
+    if ("all", "2") in files:
+        argv += ["-2", files["all", "2"], "-p", out + ".2.fq"]
     env = dict(os.environ, PYTHONPATH=checkout)
     subprocess.run(argv, cwd=checkout, env=env, check=True,
                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
@@ -54,14 +57,17 @@ def quartiles(xs):
 
 
 def main() -> int:
-    if len(sys.argv) < 3:
+    args = sys.argv[1:]
+    paired = args[:1] == ["--paired"]
+    args = args[1:] if paired else args
+    if len(args) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("no CUDA device: the runs are on the card", file=sys.stderr)
         return 1
-    sides = [os.path.abspath(p) for p in sys.argv[1:3]]
-    pairs = int(sys.argv[3]) if len(sys.argv) > 3 else 10
+    sides = [os.path.abspath(p) for p in args[:2]]
+    pairs = int(args[2]) if len(args) > 2 else 10
     if pairs < 2:
         print("PAIRS must be at least 2", file=sys.stderr)
         return 2
@@ -70,13 +76,17 @@ def main() -> int:
     try:
         rng = np.random.default_rng(12345)  # chip_smoke.py's phase-4 seed
         genes = cs.panel_genes(rng)
-        fa, files = cs.write_workload(
-            d, genes, b"GENE", cs.panel_reads(rng, genes, cs.N_PANEL_READS),
-            subsets=())
-        fq = files["all", "1"]
+        reads = cs.panel_reads(rng, genes, cs.N_PANEL_READS)
+        if paired:  # phase 4 draws the pairs after (a) and (b)'s reads
+            cs.homolog_reads(rng, cs.homolog_genes(np.random.default_rng(7)),
+                             cs.N_HOMOLOG_READS)
+            reads = cs.pair_reads(rng, genes, cs.N_PAIRS)
+        else:
+            reads = (reads,)
+        fa, files = cs.write_workload(d, genes, b"GENE", *reads, subsets=())
         want = None
         for s, side in enumerate(sides):  # warm-up: builds each checkout
-            _, ssv = run(side, d, fa, fq, f"warm{s}")
+            _, ssv = run(side, d, fa, files, f"warm{s}")
             want = want if want is not None else ssv
             if ssv != want:
                 raise SystemExit(f"{side}: ssv differs from {sides[0]}'s")
@@ -84,7 +94,7 @@ def main() -> int:
         for p in range(pairs):
             order = sides if p % 2 == 0 else sides[::-1]
             for side in order:
-                rate, ssv = run(side, d, fa, fq, "run")
+                rate, ssv = run(side, d, fa, files, "run")
                 if ssv != want:
                     raise SystemExit(f"{side}: ssv differs")
                 rates[side].append(rate)

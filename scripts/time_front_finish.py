@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the front end (K1), the finish (K3), the pair stream (K4) and the
-xl probe (K6) of shark_tpu_torch on one CUDA card, kernel by kernel.
+"""Time the front end (K1), the hashed probe (K2), the finish (K3), the
+pair stream (K4), the xl probe (K6) and the sharded owner probe (K7b) of
+shark_tpu_torch on one CUDA card, kernel by kernel.
 
     python3 scripts/time_front_finish.py [CHECKOUT]
 
 CHECKOUT is the root of the checkout whose kernels are timed (default: the
 one holding this script), so that two commits can be held side by side in
-one run on one card; the helpers (workloads, timers, the 16-byte gather)
+one run on one card; the helpers (workloads, timers, the bare gathers)
 come from this script's own chip_smoke.py. Each kernel is first checked
 against its plain version, then printed: its CUDA-event time as
 chip_smoke.py takes it (median of 7, L2 flushed), the host time of one
@@ -14,13 +15,15 @@ wrapper call (50 calls without a synchronisation), and the device time of
 each kernel and memset the wrapper launches (torch.profiler, L2 warm, mean
 over the records of 7 calls, with the count of records).
 
-K1, K3 and K4 run on the homolog panel's index of chip_smoke.py (k 17,
-2^33 Bloom bits) at B x L in {8192 x 104, 65536 x 104, 65536 x 208}; K6
-on chip_smoke.py's 50,000-gene transcriptome index (xl layout with a side
-table) at 8192 x 104 and 65536 x 104, where at 65536 it also prints
-chip_smoke.py's footprint runs (every bucket masked into the table's first
-32 MB or 256 MB, the whole table, no side table; the masked runs are wrong
-and timing only) beside the bare 16-byte gather at the same buckets.
+K1, K2, K3 and K4 run on the homolog panel's index of chip_smoke.py
+(k 17, 2^33 Bloom bits) at B x L in {8192 x 104, 65536 x 104,
+65536 x 208}; K6 on chip_smoke.py's 50,000-gene transcriptome index (xl
+layout with a side table) at 8192 x 104 and 65536 x 104, where at 65536
+it also prints chip_smoke.py's footprint runs (every bucket masked into
+the table's first 32 MB or 256 MB, the whole table, no side table; the
+masked runs are wrong and timing only) beside the bare 16-byte gather at
+the same buckets; K7b on that index split into 8 shards on the card, on
+the slots the owners receive from K7a at 8192 x 104 and 65536 x 104.
 """
 
 import argparse
@@ -92,8 +95,15 @@ def time_homolog(cs, timer):
         k1 = front()
         cs.same("front_end", k1, step.front_end_plain(packed, vmask, meta))
         hi, lo, valid, length = k1
-        tagv, payv = hashed.probe_hashed(hi, lo, valid, clf.dix.table,
-                                         clf.dix.stash, clf._hmeta)
+        args2 = (hi, lo, valid, clf.dix.table, clf.dix.stash, clf._hmeta)
+        # the count of stash rows the kernel reads, where CHECKOUT's
+        # wrapper takes it
+        rows = getattr(clf.dix, "stash_rows", None)
+        probe = functools.partial(hashed.probe_hashed, *args2,
+                                  *(() if rows is None else (rows,)))
+        tagv, payv = probe()
+        cs.same("probe_hashed", (tagv, payv),
+                hashed.probe_hashed_plain(*args2))
         kw = dict(rows3=clf.dix.rows3, ext_mat=clf.dix.ext_mat, meta=meta,
                   max_winners=16, L=L, has_rows=clf._hmeta.has_rows)
         finish = functools.partial(step.finish_from_tags, tagv, payv, length,
@@ -107,6 +117,7 @@ def time_homolog(cs, timer):
         cs.same("extract_pairs", [pairs()],
                 [step.extract_pairs_plain(k3[0], k3[1], cap)])
         report(cs, f"B={B} L={L} front", front, timer)
+        report(cs, f"B={B} L={L} probe", probe, timer)
         report(cs, f"B={B} L={L} finish", finish, timer)
         report(cs, f"B={B} L={L} pairs (pairs {total}, cap {cap})", pairs,
                timer)
@@ -147,7 +158,7 @@ def time_xl(cs, timer):
     """K6 on the transcriptome index, and its footprint at B = 65536."""
     from shark_tpu_torch.classify import hashed
 
-    gather16 = cs.build_gather16()
+    gathers = cs.Gathers()
     genes, xclf = txome_xl(cs)
     dix, hmeta = xclf.dix, xclf._hmeta
     rng = np.random.default_rng(2025)
@@ -158,10 +169,34 @@ def time_xl(cs, timer):
         cs.same("probe_xl", xl(), hashed.probe_xl_plain(*args6))
         report(cs, f"B={B} L={L} xl", xl, timer)
         if B == 65536:
-            fp = cs.xl_footprint(args6, hmeta, gather16, timer)
+            fp = cs.xl_footprint(args6, hmeta, gathers, timer)
             print(f"B={B} L={L} xl footprint (event ms, device ms, "
                   f"back-to-back ms): "
                   f"{json.dumps(fp)}", flush=True)
+    return genes, xclf
+
+
+def time_shard_probe(cs, genes, xclf, timer):
+    """K7b with the transcriptome index split into cs.SHARDS shards on the
+    card, on the slots K7a routes from front-end windows."""
+    from shark_tpu_torch.parallel import sharded_bf as sb
+
+    n = cs.SHARDS
+    dev = torch.device("cuda", 0)
+    sclf = sb.ShardedBFClassifier(xclf.index, max_winners=16, c=cs.C,
+                                  devices=[dev] * n)
+    tables = sclf.dix[dev]
+    rng = np.random.default_rng(2028)
+    for B, L in XL_SHAPES:
+        hi, lo, valid = (t.reshape(n, B // n, -1) for t in
+                         xl_windows(cs, xclf, genes, rng, B, L))
+        send = sb.shard_route(hi, lo, valid, n=n, wps=sclf.wps, wide=False,
+                              cap=sclf._probe_cap(B // n, L))[0]
+        recv = cs._transposed(send)
+        args = (recv, tables.bf_rank, tables.pay)
+        probe = functools.partial(sb.shard_probe, *args)
+        cs.same("shard_probe", [probe()], [sb.shard_probe_plain(*args)])
+        report(cs, f"B={B} L={L} shard_probe ({n} shards)", probe, timer)
 
 
 def main() -> int:
@@ -188,7 +223,8 @@ def main() -> int:
     timer = functools.partial(cuda_ms, reps=REPS)
     print(f"{root}: {torch.cuda.get_device_name(0)}", flush=True)
     time_homolog(cs, timer)
-    time_xl(cs, timer)
+    genes, xclf = time_xl(cs, timer)
+    time_shard_probe(cs, genes, xclf, timer)
     return 0
 
 

@@ -117,7 +117,7 @@ def main() -> int:
     native.rebuild()  # a library built on another host may not load here
     fns = build_variants(variant_sources(sys.argv[1] if len(sys.argv) > 1
                                          else None))
-    gather16 = cs.build_gather16()
+    gathers = cs.Gathers()
     genes, xclf = tff.txome_xl(cs)
     dix, hmeta = xclf.dix, xclf._hmeta
     hi, lo, valid = tff.xl_windows(cs, xclf, genes,
@@ -147,9 +147,8 @@ def main() -> int:
         print(f"  {tag:>5}: " + "  ".join(
             f"{name} {min(t):.4f}/{max(t):.4f}" for name, t in times.items()),
             flush=True)
-    print(f"  gather16 (whole table): "
-          f"{cs.back_to_back_ms(lambda: gather16(dix.table, bidx)):.4f}",
-          flush=True)
+    g16 = cs.back_to_back_ms(lambda: gathers.rows(dix.table, bidx, 16))
+    print(f"  gather16 (whole table): {g16:.4f}", flush=True)
     return 0
 
 

@@ -92,6 +92,8 @@ class HashedDeviceIndex(NamedTuple):
     ext_mat: Optional[torch.Tensor] = None  # uint16[n_ovf, ext3_w]
     side: Optional[torch.Tensor] = None  # xl: uint32[2^side_lgB, 2, 8]
     side_stash: Optional[torch.Tensor] = None  # xl: uint32[S2, 4]
+    # stash rows before its trailing padding rows (stash_rows_before_pad)
+    stash_rows: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -506,6 +508,13 @@ def _pad_stash(stash: np.ndarray) -> np.ndarray:
     return np.vstack([stash, pad]) if stash.size else pad
 
 
+def stash_rows_before_pad(stash: np.ndarray) -> int:
+    """The count of stash rows before its trailing rows of 0xFFFFFFFF in
+    all four words (the rows _pad_stash appends): what K2 reads."""
+    real = np.flatnonzero((stash != 0xFFFFFFFF).any(axis=1))
+    return int(real[-1]) + 1 if real.size else 0
+
+
 def empty_stash() -> np.ndarray:
     """The padded stash of a layout without one (xl): no row can match."""
     return _pad_stash(np.empty((0, 4), np.uint32))
@@ -542,6 +551,7 @@ def hashed_device_index(
         ext_mat=to_device(ext_mat, device, np.uint16),
         side=to_device(side, device, u32),
         side_stash=to_device(side_stash, device, u32),
+        stash_rows=stash_rows_before_pad(np.asarray(stash)),
     )
     return dix, hmeta
 
@@ -630,10 +640,15 @@ def probe_hashed(
     table: torch.Tensor,
     stash: torch.Tensor,
     hmeta: HashedMeta,
+    stash_rows: Optional[int] = None,
 ):
     """K2: Bloom positions -> (tagv u32[B, Ls], payv u32[B, Ls]) through
     one bucket of the entry16 or entry8 table plus the stash. CUDA tensors
-    run csrc/probe.cu; CPU tensors the plain version."""
+    run csrc/probe.cu, which reads the first `stash_rows` rows of the
+    stash and counts the rest, which must be padding rows (0xFFFFFFFF in
+    all four words), without reading them; None takes the count from the
+    stash (HashedDeviceIndex.stash_rows holds it; here it costs a copy to
+    the host). CPU tensors run the plain version."""
     if hmeta.xl:
         raise ValueError("an xl table is probed by probe_xl")
     if not idx_lo.is_cuda:
@@ -651,13 +666,19 @@ def probe_hashed(
     if table.shape[0] != 1 << hmeta.lgB:
         raise ValueError("table rows != 2**lgB")
     _check_stash(stash, "stash", STASH_CAP, dev)
-    tagv = torch.empty_like(idx_lo)
-    payv = torch.empty_like(idx_lo)
+    if stash_rows is None:
+        stash_rows = stash_rows_before_pad(stash.cpu().numpy())
+    if not 0 <= stash_rows <= stash.shape[0]:
+        raise ValueError(f"stash_rows {stash_rows} of {stash.shape[0]}")
+    # both outputs are views of one allocation (unbind costs less host
+    # time than slicing a flat one)
+    tagv, payv = torch.empty((2, *idx_lo.shape), dtype=torch.uint32,
+                             device=dev).unbind(0)
     rc = kernels.lib().shkk_probe(
         idx_hi.data_ptr(), idx_lo.data_ptr(), win_valid.data_ptr(),
         idx_lo.numel(), table.data_ptr(), hmeta.lgB, int(hmeta.entry16),
-        hmeta.slots, stash.data_ptr(), stash.shape[0], tagv.data_ptr(),
-        payv.data_ptr(), kernels.stream(dev))
+        hmeta.slots, stash.data_ptr(), stash.shape[0], stash_rows,
+        tagv.data_ptr(), payv.data_ptr(), kernels.stream(dev))
     kernels.check(rc, "probe")
     kernels.LAUNCHES.add("probe")
     return tagv, payv
@@ -767,7 +788,7 @@ def classify_kernel_hashed_packed(
                               dix.side, dix.side_stash, hmeta)
     else:
         tagv, payv = probe_hashed(idx_hi, idx_lo, win_valid, dix.table,
-                                  dix.stash, hmeta)
+                                  dix.stash, hmeta, dix.stash_rows)
     return finish_from_tags(
         tagv, payv, length, thresh,
         rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta,

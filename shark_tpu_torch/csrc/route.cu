@@ -45,6 +45,10 @@ constexpr int kChunk = 256;  // windows per routing chunk = threads per block
 constexpr int kWarps = kChunk / 32;
 constexpr int kScanThreads = 1024;
 constexpr int kThreads = 256;
+constexpr int kProbeSlots = 1;  // K7b: received slots a thread takes
+// K7b's table loads; ld.global.nc.L1::no_allocate.v2.u32 is the read-only
+// path without L1 allocation
+#define SHKK_PROBE_LOAD "ld.global.v2.u32"
 
 // The owner shard of Bloom position (hi, lo), or -1 when the window is
 // invalid or its owner falls outside [0, n); `local` gets the shard-local
@@ -168,30 +172,61 @@ __global__ void route_scatter_kernel(
   owner_out[i] = o;
 }
 
-// K7b: one thread per received slot of owner h. A slot whose word lane is
+// K7b: each thread takes kProbeSlots received slots of owner h =
+// blockIdx.y, a block's slots being kThreads apart so that every recv load
+// and reply store is coalesced; no division. A slot whose word lane is
 // not below wps (the 0xFFFFFFFF of an empty slot) reads no table row; a
-// miss replies (0, 0). (K5 reads pay row 0 on a miss; this wire does not.)
-__global__ void shard_probe_kernel(const uint2* __restrict__ recv,
-                                   long long per_owner, long long total,
-                                   const uint2* __restrict__ bf_rank,
-                                   long long wps,
-                                   const uint2* __restrict__ pay,
-                                   long long rows_max,
-                                   uint2* __restrict__ reply) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long h = i / per_owner;
-  const uint2 q = recv[i];
-  uint2 out = make_uint2(0u, 0u);
-  if ((long long)q.x < wps) {
-    const u32 bit = q.y & 31u;
-    const uint2 wr = bf_rank[h * wps + q.x];
-    if ((wr.x >> bit) & 1u) {
-      const u32 rank = wr.y + __popc(wr.x & ((1u << bit) - 1u));
-      if ((long long)rank < rows_max) out = pay[h * rows_max + rank];
-    }
+// miss replies (0, 0), as does a rank past rows_max. (K5 reads pay row 0
+// on a miss; this wire does not.) Every (word, rank) load of a thread is
+// issued before its first pay load. What bounds it, measured on the card
+// (chip_smoke.py's shard_probe floor line, scripts/probe_variants.py):
+// the card's rate of random reads, as for K5 and K6. With 8 shards of the
+// transcriptome index on one card (2.15 GB of word rows, 0.58 GB of pay
+// rows) it takes the time of a bare gather of the same word rows and
+// then pay rows, one dependent on the other, and under half that time
+// with the words masked into 32 MB a shard. 2 or 4 slots a thread
+// measured no faster, and the read-only loads without L1 allocation
+// (ld.global.nc.L1::no_allocate) 4-5% slower, 1.3x with the words in
+// 4 MB a shard; so a slot a thread with plain loads, and no division.
+__device__ __forceinline__ uint2 load_row8(const uint2* p) {
+  uint2 v;
+  asm volatile(SHKK_PROBE_LOAD " {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) shard_probe_kernel(
+    const uint2* __restrict__ recv, u32 per_owner,
+    const uint2* __restrict__ bf_rank, long long wps,
+    const uint2* __restrict__ pay, long long rows_max,
+    uint2* __restrict__ reply) {
+  const long long h = blockIdx.y;
+  const u32 base = blockIdx.x * (u32)(kThreads * kProbeSlots) + threadIdx.x;
+  const uint2* q_in = recv + h * per_owner;
+  const uint2* words = bf_rank + h * wps;
+  const uint2* pays = pay + h * rows_max;
+  uint2 q[kProbeSlots], wr[kProbeSlots];
+#pragma unroll
+  for (int j = 0; j < kProbeSlots; ++j) {
+    const u32 s = base + (u32)(j * kThreads);
+    q[j] = s < per_owner ? q_in[s] : make_uint2(0xFFFFFFFFu, 0u);
+    wr[j] = (long long)q[j].x < wps ? load_row8(words + q[j].x)
+                                    : make_uint2(0u, 0u);
   }
-  reply[i] = out;
+  uint2 out[kProbeSlots];
+#pragma unroll
+  for (int j = 0; j < kProbeSlots; ++j) {
+    const u32 bit = q[j].y & 31u;
+    const u32 rank = wr[j].y + __popc(wr[j].x & ((1u << bit) - 1u));
+    const bool hit = ((wr[j].x >> bit) & 1u) && (long long)rank < rows_max;
+    out[j] = hit ? load_row8(pays + rank) : make_uint2(0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < kProbeSlots; ++j) {
+    const u32 s = base + (u32)(j * kThreads);
+    if (s < per_owner) reply[h * per_owner + s] = out[j];
+  }
 }
 
 // K7c: one thread per window of source s: its reply where K7a gave it a
@@ -249,15 +284,18 @@ extern "C" int shkk_shard_route(const void* idx_hi, const void* idx_lo,
   return (int)cudaGetLastError();
 }
 
-extern "C" int shkk_shard_probe(const void* recv, long long per_owner,
-                                long long total, const void* bf_rank,
+extern "C" int shkk_shard_probe(const void* recv, int n_owners,
+                                long long per_owner, const void* bf_rank,
                                 long long wps, const void* pay,
                                 long long rows_max, void* reply,
                                 void* stream) {
-  if (total > 0) {
-    shard_probe_kernel<<<grid_for(total, kThreads), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint2*)recv, per_owner, total, (const uint2*)bf_rank, wps,
+  if (n_owners < 0 || n_owners > 65535 || per_owner < 0 ||
+      per_owner > 0xFFFFFFFFll - kThreads * kProbeSlots)
+    return (int)cudaErrorInvalidValue;
+  if (n_owners > 0 && per_owner > 0) {
+    const dim3 grid(grid_for(per_owner, kThreads * kProbeSlots), n_owners);
+    shard_probe_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint2*)recv, (u32)per_owner, (const uint2*)bf_rank, wps,
         (const uint2*)pay, rows_max, (uint2*)reply);
   }
   return (int)cudaGetLastError();

@@ -174,9 +174,9 @@ _SIGNATURES = {
     "shkk_front": [_VP, _VP, _I, _I, _I, _I, _U64, _U64, _VP, _VP, _VP, _VP,
                    _VP],
     # idx_hi, idx_lo, win_valid, n, table, lgB, entry16, slots, stash,
-    # n_stash, tagv, payv, stream
-    "shkk_probe": [_VP, _VP, _VP, _L, _VP, _I, _I, _I, _VP, _I, _VP, _VP,
-                   _VP],
+    # n_stash, n_real, tagv, payv, stream
+    "shkk_probe": [_VP, _VP, _VP, _L, _VP, _I, _I, _I, _VP, _I, _I, _VP,
+                   _VP, _VP],
     # (see csrc/finish.cu: ReadsArgs)
     "shkk_finish": [
         _VP, _VP, _VP, _VP,  # tagv, payv, length, thresh
@@ -203,8 +203,8 @@ _SIGNATURES = {
     # offs, send, slot, owner, overflow, stream
     "shkk_shard_route": [_VP, _VP, _VP, _I, _L, _I, _L, _I, _L, _VP, _VP,
                          _VP, _VP, _VP, _VP, _VP],
-    # recv, per_owner, total, bf_rank, wps, pay, rows_max, reply, stream
-    "shkk_shard_probe": [_VP, _L, _L, _VP, _L, _VP, _L, _VP, _VP],
+    # recv, n_owners, per_owner, bf_rank, wps, pay, rows_max, reply, stream
+    "shkk_shard_probe": [_VP, _I, _L, _VP, _L, _VP, _L, _VP, _VP],
     # back, Pn, total, n, cap, owner, slot, tagv, payv, stream
     "shkk_shard_return": [_VP, _L, _L, _I, _L, _VP, _VP, _VP, _VP, _VP],
     # table_tiles, idx, n, out, stream

@@ -269,7 +269,7 @@ def shard_probe(recv, bf_rank, pay):
     reply = torch.empty_like(recv)
     per_owner = recv.shape[1] * recv.shape[2]
     rc = kernels.lib().shkk_shard_probe(
-        recv.data_ptr(), per_owner, H * per_owner, bf_rank.data_ptr(),
+        recv.data_ptr(), H, per_owner, bf_rank.data_ptr(),
         bf_rank.shape[1], pay.data_ptr(), pay.shape[1], reply.data_ptr(),
         kernels.stream(dev))
     kernels.check(rc, "shard_probe")

@@ -13,9 +13,14 @@ geometries with and without a side table, xl windows in flat views that
 are ragged or unaligned and windows that all need the side table, the
 pair stream at W = 31, one row, no emitted row, out_len below and above
 the pair count, unaligned verdicts and the sentinel collision at
-B = 65536, reads shorter than k, the sharded Bloom filter's routing
-kernels at n in {1, 2, 8} shards, narrow and wide, with and without
-overflow (and reprobe from another thread on another stream), whole
+B = 65536, reads shorter than k, the hashed probe on windows planted at
+its stash rows (and beside them, invalid, and colliding in the kernel's
+stash table), on hand-made entry16 4-slot and entry8 tables with up to
+200 stash rows and repeated positions, and with a stash of padding rows
+only, the sharded Bloom filter's routing kernels at n in {1, 2, 8}
+shards, narrow and wide, with and without overflow (and reprobe from
+another thread on another stream), the owner probe on hand-made slots
+(an owner that received nothing, ranks past the pay rows), whole
 pipelines on random workloads (one with a 17000-base read), and the two
 experiment kernels (P1, P2) at small, mid and default sizes, P1 at a row
 count that is not a power of two, their refusals and their stream.
@@ -236,6 +241,169 @@ def test_probe_kernel(cuda, allow16):
         *step.pack_codes(torch.from_numpy(codes).to(cuda)), meta)
     args = (hi, lo, valid, dix.table, dix.stash, hmeta)
     equal(hashed.probe_hashed(*args), hashed.probe_hashed_plain(*args))
+
+
+def stash_slot(lo, hi, lg):
+    """csrc/probe.cu's stash_slot in numpy: the slot of positions (lo, hi)
+    in the kernel's stash table of 2^lg slots."""
+    u = np.uint32
+    with np.errstate(over="ignore"):
+        h = (lo.astype(u) * u(0x9E3779B1)) ^ (
+            (hi.astype(u) + u(0x7F4A7C15)) * u(0x85EBCA77))
+        h ^= h >> u(16)
+        h = h * u(0x7FEB352D)
+        h ^= h >> u(15)
+    return h >> u(32 - lg)
+
+
+def stash_table_lg(n_real):
+    """log2 of the kernel's stash table size for n_real rows."""
+    lg = 6
+    while (1 << lg) < 4 * n_real:
+        lg += 1
+    return lg
+
+
+def planted_windows(rng, stash, n_pos):
+    """1-D (lo, hi, valid) numpy windows: every real stash row's position;
+    the same lo with another hi; positions whose stash-table slot equals a
+    row's; the stash positions again on invalid windows; (0xFFFFFFFF,
+    0xFFFFFFFF), which every padding row matches, valid and invalid; and
+    random positions below 2^n_pos."""
+    n = hashed.stash_rows_before_pad(stash)
+    real = stash[:n]
+    rand = rng.integers(0, 1 << n_pos, size=1 << 18, dtype=np.int64)
+    rlo = (rand & 0xFFFFFFFF).astype(np.uint32)
+    rhi = (rand >> 32).astype(np.uint32)
+    lg = stash_table_lg(n)
+    coll = np.isin(stash_slot(rlo, rhi, lg),
+                   stash_slot(real[:, 0], real[:, 1], lg))
+    assert n == 0 or coll.sum() > 100
+    ones = np.array([0xFFFFFFFF] * 2, np.uint32)
+    lo = np.concatenate([real[:, 0], real[:, 0], rlo[coll][:4096],
+                         real[:, 0], ones, rlo[:8192]])
+    hi = np.concatenate([real[:, 1], real[:, 1] ^ 1, rhi[coll][:4096],
+                         real[:, 1], ones, rhi[:8192]])
+    valid = np.ones(lo.size, bool)
+    first = 2 * n + int(min(coll.sum(), 4096))
+    valid[first:first + n + 1] = False  # the stash positions, one all-ones
+    valid[-8192:] = rng.random(8192) < 0.9
+    return lo, hi, valid
+
+
+def check_probe(cuda, wins, table, stash, hmeta):
+    """K2 on numpy or card windows against its plain version, with the
+    stash row count passed and taken from the stash; returns the plain
+    (tagv, payv) as int32."""
+    def dev(a):
+        return (a if isinstance(a, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(a))).to(cuda)
+    args = (*(dev(a) for a in wins), dev(table), dev(stash), hmeta)
+    want = hashed.probe_hashed_plain(*args)
+    equal(hashed.probe_hashed(*args), want)
+    equal(hashed.probe_hashed(*args, hashed.stash_rows_before_pad(stash)),
+          want)
+    return [w.view(torch.int32) for w in want]
+
+
+@pytest.mark.parametrize("allow16", [True, False], ids=["entry16", "entry8"])
+def test_probe_kernel_planted_stash_windows(cuda, allow16):
+    """K2 on an index whose buckets spill: front-end windows, then planted
+    windows at every real stash row (also with another hi, on invalid
+    windows and at slots that collide in the kernel's stash table)."""
+    records, index = family_index(members=4, n_fam=6, singles=40,
+                                  size_bits=1 << 24, flank=200, single_len=800)
+    table, stash, hmeta = hashed.build_hashed_index(index, allow16=allow16)
+    n = hashed.stash_rows_before_pad(stash)
+    assert n > 0
+    rng = np.random.default_rng(31)
+    codes = encode(reads_from(rng, records, 500, 0, 400))
+    meta = step.StaticMeta.for_index(index, 96)
+    hi, lo, valid, _ = step.front_end(
+        *step.pack_codes(torch.from_numpy(codes).to(cuda)), meta)
+    check_probe(cuda, (hi, lo, valid), table, stash, hmeta)
+    plo, phi, pvalid = planted_windows(rng, stash, 24)
+    tag, pay = check_probe(cuda, (phi, plo, pvalid), table, stash, hmeta)
+    assert (tag[:n] != 0).all()  # every stash row is found
+    assert (tag[2 * n:][~torch.from_numpy(pvalid[2 * n:]).to(cuda)]
+            == 0).all()
+
+
+def synthetic_stash(rng, n_real, n_pad, dup=0):
+    """n_real random stash rows (positions below 2^36, tags 1-3, random
+    payloads), the first `dup` of them repeated with other tags and
+    payloads, then n_pad padding rows."""
+    pos = rng.choice(1 << 36, size=n_real, replace=False)
+    rows = np.stack([pos & 0xFFFFFFFF, pos >> 32, rng.integers(1, 4, n_real),
+                     rng.integers(0, 1 << 32, n_real)], 1).astype(np.uint32)
+    again = rows[:dup].copy()
+    again[:, 2:] = np.stack([rng.integers(1, 4, dup),
+                             rng.integers(0, 1 << 32, dup)], 1)
+    return np.concatenate([rows, again,
+                           np.full((n_pad, 4), 0xFFFFFFFF, np.uint32)])
+
+
+def table_windows(rng, words, lgB, rest_of, n):
+    """n windows at occupied slots of a hand-made table (rest_of(word) is
+    the slot's rest; every one of them matches) and n random ones."""
+    b, s = np.nonzero(rest_of(words) >= 0)
+    pick = rng.integers(0, b.size, n)
+    pos = (rest_of(words)[b[pick], s[pick]].astype(np.int64) << lgB) \
+        | b[pick]
+    pos = np.concatenate([pos, rng.integers(0, 1 << 36, n)])
+    return ((pos >> 32).astype(np.uint32), (pos & 0xFFFFFFFF).astype(
+        np.uint32), rng.random(2 * n) < 0.95)
+
+
+@pytest.mark.parametrize("layout", ["entry16x4", "entry8_big_stash",
+                                    "padding_stash"])
+def test_probe_kernel_layouts(cuda, layout):
+    """K2 on hand-made tables: entry16 with 4 slots a bucket (adjacent
+    degree-2 words), entry8 with 200 real stash rows and 3 repeated
+    positions (the kernel may rely on no property of the stash), and a
+    real entry16 index with a stash of padding rows only."""
+    rng = np.random.default_rng(33)
+    if layout == "padding_stash":
+        _, index = family_index(size_bits=1 << 24)
+        table, _, hmeta = hashed.build_hashed_index(index)
+        stash = np.full((32, 4), 0xFFFFFFFF, np.uint32)
+        plo, phi, pvalid = planted_windows(rng, stash, 24)
+        check_probe(cuda, (phi, plo, pvalid), table, stash, hmeta)
+        return
+    if layout == "entry16x4":
+        lgB = 12
+        meta16 = (rng.integers(1, 4, (1 << lgB, 4)) << 14) \
+            | rng.integers(0, 1 << 14, (1 << lgB, 4))
+        meta16[rng.random(meta16.shape) < 0.3] = 0  # empty slots
+        two = rng.random(1 << lgB) < 0.3  # a degree-2 entry in slots 1, 2
+        meta16[two, 2] = meta16[two, 1]
+        table = ((meta16 << 16) | rng.integers(0, 1 << 16, meta16.shape)
+                 ).astype(np.uint32)
+        hmeta = hashed.HashedMeta(lgB=lgB, has_rows=False, entry16=True,
+                                  slots=4)
+        stash = synthetic_stash(rng, 10, 22)
+
+        def rest_of(w):
+            return np.where(w >> 30 != 0, (w >> 16) & 0x3FFF, -1)
+    else:
+        lgB = 10
+        w0 = ((rng.integers(1, 4, (1 << lgB, 8)) << 30)
+              | rng.integers(0, 1 << 26, (1 << lgB, 8)))
+        w0[rng.random(w0.shape) < 0.3] = 0
+        table = np.stack([w0, rng.integers(0, 1 << 32, w0.shape)],
+                         1).astype(np.uint32)
+        hmeta = hashed.HashedMeta(lgB=lgB, has_rows=False, entry16=False)
+        stash = synthetic_stash(rng, 200, 53, dup=3)
+
+        def rest_of(t):
+            w = t[:, 0, :] if t.ndim == 3 else t
+            return np.where(w >> 30 != 0, w & 0x3FFFFFFF, -1)
+    hi, lo, valid = table_windows(rng, table.astype(np.int64), lgB, rest_of,
+                                  4096)
+    tag, _ = check_probe(cuda, (hi, lo, valid), table, stash, hmeta)
+    assert (tag[:4096][torch.from_numpy(valid[:4096]).to(cuda)] != 0).all()
+    plo, phi, pvalid = planted_windows(rng, stash, 36)
+    check_probe(cuda, (phi, plo, pvalid), table, stash, hmeta)
 
 
 @pytest.mark.parametrize("tier", ["no_impure", "within_cap", "past_cap2"])
@@ -707,6 +875,48 @@ def test_shard_kernels(cuda, n, wide, overflow):
         k7a = check_shard_kernels(*wins, n, clf.wps, clf.wide,
                                   clf._probe_cap(B // n, 104), clf.dix[cuda])
         assert bool((k7a[3] > 0).all()) == overflow
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+def test_shard_probe_kernel_slots(cuda, n):
+    """K7b on hand-made received slots: a slot count per owner that is no
+    multiple of the slots a thread or a block takes, empty slots among
+    routed ones, an owner that received nothing (every owner, in a second
+    call), and a pay table cut short, so that some hits have a rank past
+    its rows and reply (0, 0)."""
+    genes, index = txome_like_index(17, 1 << 26)
+    t = ShardedBFClassifier(index, devices=[cuda] * n).dix[cuda]
+    bf_rank = t.bf_rank.cpu().numpy()
+    wps = bf_rank.shape[1]
+    rng = np.random.default_rng(40 + n)
+    cap = 1001
+    recv = np.full((n, n, cap, 2), 0xFFFFFFFF, np.uint32)
+    for h in range(n):
+        if h == 1:
+            continue  # owner 1 receives nothing
+        k = n * cap
+        set_words = np.flatnonzero(bf_rank[h, :, 0])
+        words = np.where(rng.random(k) < 0.7, rng.choice(set_words, k),
+                         rng.integers(0, wps, k))
+        slots = np.stack([words, rng.integers(0, 32, k)], 1)
+        slots[rng.random(k) < 0.2] = 0xFFFFFFFF  # empty slots
+        recv[h] = slots.reshape(n, cap, 2)
+    recv = torch.from_numpy(recv).to(cuda)
+    full = sharded_bf.shard_probe_plain(recv, t.bf_rank, t.pay).view(
+        torch.int32)
+    assert bool((full != 0).any())
+    for rows_max in (t.pay.shape[1], t.pay.shape[1] // 3):
+        pay = t.pay[:, :rows_max].contiguous()
+        got = sharded_bf.shard_probe(recv, t.bf_rank, pay)
+        equal([got], [sharded_bf.shard_probe_plain(recv, t.bf_rank, pay)])
+        got = got.view(torch.int32)
+        if n > 1:
+            assert not bool((got[1] != 0).any())
+    assert bool(((full != 0) & (got == 0)).any())  # ranks past rows_max
+    empty = torch.full(recv.shape, -1, dtype=torch.int32,
+                       device=cuda).view(torch.uint32)
+    got = sharded_bf.shard_probe(empty, t.bf_rank, t.pay)
+    assert not bool((got.view(torch.int32) != 0).any())
 
 
 def test_shard_route_wide_geometry(cuda):
