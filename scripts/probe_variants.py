@@ -60,26 +60,29 @@ B, L = 65536, 104
 SLOTS = re.compile(r"constexpr int kProbeSlots = \d+;")
 LOAD = '#define SHKK_PROBE_LOAD "ld.global.v2.u32"'
 LOAD_NC = '#define SHKK_PROBE_LOAD "ld.global.nc.L1::no_allocate.v2.u32"'
+LOGS = {}
 # the entry point before it took the owner count (one thread a slot)
 OLD_SIGNATURE = re.compile(r"shkk_shard_probe\(const void\* recv, long long "
                            r"per_owner,\s+long long total")
 
 
-def build(name, text, inc, entry, argtypes):
+def build(name, text, inc, entry, argtypes, flags=()):
     """nvcc one variant's source into its own library, started; returns
-    a function that waits for it and gives its C entry point."""
+    a function that waits for it and gives its C entry point. The
+    compiler's output is kept in LOGS[name]."""
     d = os.path.join(OWN_ROOT, "build", "probe_variants", name)
     os.makedirs(d, exist_ok=True)
     src, so = os.path.join(d, "src.cu"), os.path.join(d, "lib.so")
     with open(src, "w") as f:
         f.write(text)
-    p = subprocess.Popen([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+    p = subprocess.Popen([kernels.nvcc_path(), *kernels.NVCC_FLAGS, *flags,
                           "-shared", "-I", inc, "-o", so, src],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
 
     def done():
         log, _ = p.communicate()
+        LOGS[name] = log
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}\n{log}")
         fn = getattr(ctypes.CDLL(so), entry)

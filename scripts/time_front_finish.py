@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the front end (K1), the hashed probe (K2), the finish (K3), the
-pair stream (K4), the xl probe (K6) and the sharded owner probe (K7b) of
-shark_tpu_torch on one CUDA card, kernel by kernel.
+pair stream (K4), the classic probe (K5), the xl probe (K6) and the
+sharded router, owner probe and return (K7a, K7b, K7c) of shark_tpu_torch
+on one CUDA card, kernel by kernel.
 
     python3 scripts/time_front_finish.py [CHECKOUT]
 
@@ -22,8 +23,9 @@ layout with a side table) at 8192 x 104 and 65536 x 104, where at 65536
 it also prints chip_smoke.py's footprint runs (every bucket masked into
 the table's first 32 MB or 256 MB, the whole table, no side table; the
 masked runs are wrong and timing only) beside the bare 16-byte gather at
-the same buckets; K7b on that index split into 8 shards on the card, on
-the slots the owners receive from K7a at 8192 x 104 and 65536 x 104.
+the same buckets; K5 on that index's classic tables, and K7a-c on that
+index split into 8 shards on the card (K7b on the slots the owners
+receive from K7a, K7c on the replies), at 8192 x 104 and 65536 x 104.
 """
 
 import argparse
@@ -169,16 +171,31 @@ def time_xl(cs, timer):
         cs.same("probe_xl", xl(), hashed.probe_xl_plain(*args6))
         report(cs, f"B={B} L={L} xl", xl, timer)
         if B == 65536:
-            fp = cs.xl_footprint(args6, hmeta, gathers, timer)
+            fp = cs.xl_footprint(args6, hmeta, gathers)
             print(f"B={B} L={L} xl footprint (event ms, device ms, "
                   f"back-to-back ms): "
                   f"{json.dumps(fp)}", flush=True)
     return genes, xclf
 
 
-def time_shard_probe(cs, genes, xclf, timer):
-    """K7b with the transcriptome index split into cs.SHARDS shards on the
-    card, on the slots K7a routes from front-end windows."""
+def time_classic(cs, genes, xclf, timer):
+    """K5 on the transcriptome index's classic tables."""
+    from shark_tpu_torch.classify import step
+    from shark_tpu_torch.classify.step import Classifier
+
+    cclf = Classifier(xclf.index, max_winners=16, c=cs.C, probe="classic")
+    rng = np.random.default_rng(2025)
+    for B, L in XL_SHAPES:
+        args5 = (*xl_windows(cs, xclf, genes, rng, B, L), cclf.dix.bf_rank,
+                 cclf.dix.pay)
+        classic = functools.partial(step.probe_tags, *args5)
+        cs.same("probe_tags", classic(), step.probe_tags_plain(*args5))
+        report(cs, f"B={B} L={L} classic", classic, timer)
+
+
+def time_sharded(cs, genes, xclf, timer):
+    """K7a, K7b and K7c with the transcriptome index split into cs.SHARDS
+    shards on the card, on front-end windows."""
     from shark_tpu_torch.parallel import sharded_bf as sb
 
     n = cs.SHARDS
@@ -188,15 +205,28 @@ def time_shard_probe(cs, genes, xclf, timer):
     tables = sclf.dix[dev]
     rng = np.random.default_rng(2028)
     for B, L in XL_SHAPES:
-        hi, lo, valid = (t.reshape(n, B // n, -1) for t in
-                         xl_windows(cs, xclf, genes, rng, B, L))
-        send = sb.shard_route(hi, lo, valid, n=n, wps=sclf.wps, wide=False,
-                              cap=sclf._probe_cap(B // n, L))[0]
+        wins = [t.reshape(n, B // n, -1) for t in
+                xl_windows(cs, xclf, genes, rng, B, L)]
+        kw = dict(n=n, wps=sclf.wps, wide=False,
+                  cap=sclf._probe_cap(B // n, L))
+        route = functools.partial(sb.shard_route, *wins, **kw)
+        send, slot, owner, _ = route()
+        cs.same("shard_route", (send, slot, owner),
+                sb.shard_route_plain(*wins, **kw)[:3])
         recv = cs._transposed(send)
         args = (recv, tables.bf_rank, tables.pay)
         probe = functools.partial(sb.shard_probe, *args)
-        cs.same("shard_probe", [probe()], [sb.shard_probe_plain(*args)])
-        report(cs, f"B={B} L={L} shard_probe ({n} shards)", probe, timer)
+        reply = probe()
+        cs.same("shard_probe", [reply], [sb.shard_probe_plain(*args)])
+        back = cs._transposed(reply)
+        ret = functools.partial(sb.shard_return, back, owner, slot)
+        cs.same("shard_return", ret(), sb.shard_return_plain(back, owner,
+                                                             slot))
+        where = f"B={B} L={L}"
+        report(cs, f"{where} shard_route ({n} shards, cap {kw['cap']})",
+               route, timer)
+        report(cs, f"{where} shard_probe ({n} shards)", probe, timer)
+        report(cs, f"{where} shard_return ({n} shards)", ret, timer)
 
 
 def main() -> int:
@@ -224,7 +254,8 @@ def main() -> int:
     print(f"{root}: {torch.cuda.get_device_name(0)}", flush=True)
     time_homolog(cs, timer)
     genes, xclf = time_xl(cs, timer)
-    time_shard_probe(cs, genes, xclf, timer)
+    time_classic(cs, genes, xclf, timer)
+    time_sharded(cs, genes, xclf, timer)
     return 0
 
 

@@ -24,26 +24,49 @@
 // K7a's slot order is shark_tpu's: it sorts the keys owner * Pn + flat
 // position, so within an owner the slots follow the window's position and
 // the probes that overflow `cap` are that owner's last ones. Here, without
-// a sort: a count pass builds one histogram of owners per 256-window
-// chunk, a scan pass turns them into each chunk's first slot per owner
-// (and sums the overflow), and a scatter pass ranks each window among the
-// earlier windows of its chunk with the same owner (a warp's
-// __match_any_sync plus per-warp counts in shared memory), which keeps the
-// order stable.
+// a sort, in one launch that reads each window once: a block takes a tile
+// of kTile windows of one source, each warp kWarpTile consecutive ones, a
+// lane every 32nd, so each load is coalesced. The warp ranks each window
+// among the earlier windows of its warp with the same owner
+// (__match_any_sync and a running count per warp and owner in shared
+// memory), the block scans those counts over its warps, and the tile
+// finds each owner's first slot by a single-pass scan with decoupled
+// look-back (Merrill & Garland, 2016): it publishes, per owner, a status
+// word holding its count and then its inclusive prefix, and a warp per
+// owner sums the words of up to 32 earlier tiles of its source at a time,
+// back to the nearest inclusive prefix. A tile's place in that order is
+// an atomic ticket, not blockIdx: blocks start in no order, and a block
+// that waited on a tile that had not started could wait forever; a
+// ticket is taken at a block's start, so every earlier tile is running.
+// The blocks whose ticket comes after every tile fill the tails
+// [min(total, cap), cap) of each (source, owner) with the sentinel, once
+// the source's last tile has published its totals; that tile also writes
+// the source's overflow. So the send buffer is written once, with no
+// memset of the whole of it. The status words and the ticket are the
+// only scratch (one small memset a call).
 //
 // Bound: bytes. K7a must read 9 bytes per window and write 8 per window
-// and per slot; K7b reads one 8-byte (word, rank) row per routed window
-// and one 8-byte pay row per hit, two dependent random loads; K7c reads 8
-// bytes of owner and slot and one 8-byte reply per routed window and
-// writes 8. All three are one thread per window or slot; the random loads
-// of K7b and K7c cost a 32-byte sector each.
+// (slot and owner), 8 per routed slot and 8 per tail slot; it does, and
+// stores a warp's slots of one owner in a contiguous run. K7b reads one
+// 8-byte (word, rank) row per routed window and one 8-byte pay row per
+// hit, two dependent random loads; K7c reads 8 bytes of owner and slot and
+// one 8-byte reply per routed window and writes 8. Those two are one
+// thread per window or slot; their random loads cost a 32-byte sector
+// each.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kChunk = 256;  // windows per routing chunk = threads per block
-constexpr int kWarps = kChunk / 32;
-constexpr int kScanThreads = 1024;
+constexpr int kRouteThreads = 256;  // K7a: threads a block
+constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr int kRounds = 16;  // K7a: windows a thread takes
+constexpr int kWarpTile = 32 * kRounds;
+constexpr int kTile = kRouteThreads * kRounds;  // windows a tile
+constexpr int kFillChunk = 2048;  // tail slots a fill block takes at once
+constexpr int kMaxFillBlocks = 512;
+// K7a's status words: a flag in the top two bits, a count in the low 32
+constexpr u64 kFlagCount = 1ull << 62;   // the tile's own count
+constexpr u64 kFlagPrefix = 2ull << 62;  // its inclusive prefix
 constexpr int kThreads = 256;
 constexpr int kProbeSlots = 1;  // K7b: received slots a thread takes
 // K7b's table loads; ld.global.nc.L1::no_allocate.v2.u32 is the read-only
@@ -74,102 +97,200 @@ __device__ __forceinline__ int owner_of(u32 hi, u32 lo, bool valid, int n,
   return (valid && owner >= 0 && owner < n) ? owner : -1;
 }
 
-__global__ void route_count_kernel(const u32* __restrict__ idx_hi,
-                                   const u32* __restrict__ idx_lo,
-                                   const uint8_t* __restrict__ win_valid,
-                                   long long Pn, int n, long long wps,
-                                   int wide, int nchunks,
-                                   int* __restrict__ counts) {
-  extern __shared__ int hist[];  // [n]
-  const int c = blockIdx.x;
-  const long long s = blockIdx.y;
-  for (int o = threadIdx.x; o < n; o += blockDim.x) hist[o] = 0;
-  __syncthreads();
-  const long long p = (long long)c * kChunk + threadIdx.x;
-  if (p < Pn) {
-    const long long i = s * Pn + p;
-    u32 local;
-    const int o = owner_of(idx_hi[i], idx_lo[i], win_valid[i] != 0, n, wps,
-                           wide, local);
-    if (o >= 0) atomicAdd(&hist[o], 1);
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < n; o += blockDim.x)
-    counts[(s * n + o) * nchunks + c] = hist[o];
+__device__ __forceinline__ u64 load_status(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// One block per (source, owner) row of counts: exclusive scan over the
-// chunks, and the windows of the row past `cap` added to the source's
-// overflow count.
-__global__ void route_scan_kernel(const int* __restrict__ counts, int nchunks,
-                                  int n, long long cap, int* __restrict__ offs,
-                                  int* __restrict__ overflow) {
-  __shared__ int sh[33];
-  const long long row = blockIdx.x;
-  const int* cnt = counts + row * nchunks;
-  int* off = offs + row * nchunks;
-  int carry = 0;
-  for (int base = 0; base < nchunks; base += blockDim.x) {
-    const int c = base + threadIdx.x;
-    const int v = c < nchunks ? cnt[c] : 0;
-    int total;
-    const int excl = block_exclusive_scan(v, sh, total);
-    if (c < nchunks) off[c] = carry + excl;
-    carry += total;
-  }
-  if (threadIdx.x == 0 && carry > cap)
-    atomicAdd(&overflow[row / n], (int)(carry - cap));
+__device__ __forceinline__ void store_status(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-__global__ void route_scatter_kernel(
+// The status word of a tile and owner once it carries a flag, or (with
+// `prefix`, for a fill block, which backs off between reads) once it
+// carries the inclusive prefix. The tile is running (it took an earlier
+// ticket), so it will publish both.
+__device__ __forceinline__ u64 wait_status(const u64* p, bool prefix) {
+  u64 v = load_status(p);
+  while ((v >> 62) < (prefix ? 2u : 1u)) {
+    if (prefix) __nanosleep(200);
+    v = load_status(p);
+  }
+  return v;
+}
+
+// Shared memory of a K7a block, in ints: per warp and owner a running
+// count, then its offset among the tile's windows of that owner
+// [kRouteWarps][n]; per owner the tile's count [n] and its first slot
+// [n].
+static inline size_t route_smem(int n) {
+  return (size_t)(kRouteWarps + 2) * n * sizeof(int);
+}
+
+// Fill block: the sentinel into [min(total, cap), cap) of every (source,
+// owner) row, in units of kFillChunk slots, a unit's row total read from
+// its source's last tile once that has published it.
+__device__ void route_fill(long long f, long long nfill, int tiles, int n,
+                           long long Pn, long long cap, long long units,
+                           long long chunks, const u64* status,
+                           uint2* send) {
+  __shared__ long long end;
+  for (long long u = f; u < units; u += nfill) {
+    const long long row = u / chunks;  // source * n + owner
+    const long long from = (u % chunks) * kFillChunk;
+    const long long to = min(from + kFillChunk, cap);
+    if (threadIdx.x == 0) {
+      // slots at or past Pn are tail whatever the total
+      end = from >= Pn ? from
+                       : min((long long)(u32)wait_status(
+                                 status + ((row / n) * tiles + tiles - 1) * n +
+                                 row % n,
+                                 true),
+                             cap);
+    }
+    __syncthreads();
+    uint2* dst = send + row * cap;
+    for (long long j = max(from, end) + threadIdx.x; j < to;
+         j += kRouteThreads)
+      dst[j] = make_uint2(0xFFFFFFFFu, 0xFFFFFFFFu);
+    __syncthreads();  // `end` is rewritten by the next unit
+  }
+}
+
+__global__ void __launch_bounds__(kRouteThreads) route_kernel(
     const u32* __restrict__ idx_hi, const u32* __restrict__ idx_lo,
-    const uint8_t* __restrict__ win_valid, long long Pn, int n,
-    long long wps, int wide, int nchunks, long long cap,
-    const int* __restrict__ offs, uint2* __restrict__ send,
-    int* __restrict__ slot_out, int* __restrict__ owner_out) {
-  extern __shared__ int wcnt[];  // [kWarps][n]: windows per warp and owner
-  const int c = blockIdx.x;
-  const long long s = blockIdx.y;
+    const uint8_t* __restrict__ win_valid, long long Pn, int n, long long wps,
+    int wide, long long cap, int tiles, long long n_tiles, long long units,
+    long long chunks, unsigned* __restrict__ ticket, u64* __restrict__ status,
+    uint2* __restrict__ send, int* __restrict__ slot_out,
+    int* __restrict__ owner_out, int* __restrict__ overflow) {
+  extern __shared__ int sm[];
+  int* wcnt = sm;                         // [kRouteWarps][n]
+  int* count = wcnt + kRouteWarps * n;    // [n]
+  int* first = count + n;                 // [n]
+  __shared__ long long sh_ticket;
+  __shared__ int sh_over;
+  if (threadIdx.x == 0) {
+    sh_ticket = atomicAdd(ticket, 1u);
+    sh_over = 0;
+  }
+  for (int j = threadIdx.x; j < kRouteWarps * n; j += kRouteThreads)
+    wcnt[j] = 0;
+  __syncthreads();
+  const long long t = sh_ticket;
+  if (t >= n_tiles) {
+    route_fill(t - n_tiles, (long long)gridDim.x - n_tiles, tiles, n, Pn,
+               cap, units, chunks, status, send);
+    return;
+  }
+  const long long s = t / tiles;
+  const int c = (int)(t % tiles);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < kWarps * n; j += blockDim.x) wcnt[j] = 0;
-  __syncthreads();
-  const long long p = (long long)c * kChunk + threadIdx.x;
-  const bool in = p < Pn;
-  const long long i = s * Pn + p;
-  u32 local = 0, bit = 0;
-  int o = -1;
-  if (in) {
-    const u32 lo = idx_lo[i];
-    bit = lo & 31u;
-    o = owner_of(idx_hi[i], lo, win_valid[i] != 0, n, wps, wide, local);
+
+  // every window of the lane loaded before the first is used
+  const long long p0 = (long long)c * kTile + warp * kWarpTile + lane;
+  const long long i0 = s * Pn + p0;
+  u32 hi[kRounds], lo[kRounds];
+  uint8_t va[kRounds];
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    const bool in = p0 + k * 32 < Pn;
+    hi[k] = in ? idx_hi[i0 + k * 32] : 0u;
+    lo[k] = in ? idx_lo[i0 + k * 32] : 0u;
+    va[k] = in ? win_valid[i0 + k * 32] : (uint8_t)0;
   }
-  // lanes with the same owner, and this lane's rank among the lower ones
-  const unsigned peers = __match_any_sync(0xffffffffu, o);
-  const int rank = __popc(peers & ((1u << lane) - 1u));
-  if (o >= 0 && rank == 0) wcnt[warp * n + o] = __popc(peers);
+  // rank: the window's rank among the warp's windows of its owner (under
+  // kWarpTile) in the low 16 bits, its bit above
+  int own[kRounds], rank[kRounds];
+  u32 local[kRounds];
+  int* wc = wcnt + warp * n;
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    own[k] = owner_of(hi[k], lo[k], va[k] != 0, n, wps, wide, local[k]);
+    // lanes with the same owner, and this lane's rank among the lower ones
+    const unsigned peers = __match_any_sync(0xffffffffu, own[k]);
+    const int below = __popc(peers & ((1u << lane) - 1u));
+    rank[k] = (own[k] >= 0 ? wc[own[k]] + below : 0) |
+              (int)((lo[k] & 31u) << 16);
+    __syncwarp();
+    if (own[k] >= 0 && below == 0) wc[own[k]] += __popc(peers);
+    __syncwarp();
+  }
   __syncthreads();
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+  // per owner: the warps' counts become offsets; publish the tile's count
+  u64* st = status + (s * tiles + c) * n;
+  for (int o = threadIdx.x; o < n; o += kRouteThreads) {
     int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int t = wcnt[w * n + q];
-      wcnt[w * n + q] = run;
-      run += t;
+    for (int w = 0; w < kRouteWarps; ++w) {
+      const int x = wcnt[w * n + o];
+      wcnt[w * n + o] = run;
+      run += x;
     }
+    count[o] = run;
+    store_status(st + o, (c == 0 ? kFlagPrefix : kFlagCount) | (u32)run);
   }
   __syncthreads();
-  if (!in) return;
-  int sl = -1;
-  if (o >= 0) {
-    const long long slot = (long long)offs[(s * n + o) * nchunks + c] +
-                           wcnt[warp * n + o] + rank;
-    if (slot < cap) {
-      sl = (int)slot;
-      send[(s * n + o) * cap + slot] = make_uint2(local, bit);
+  // look-back: a warp per owner sums the counts of up to 32 earlier tiles
+  // of the source at a time (lane l the tile l + 1 back), down to the
+  // nearest that carries its inclusive prefix
+  const u64* src_status = status + s * tiles * n;
+  for (int o = warp; o < n; o += kRouteWarps) {
+    u32 excl = 0;
+    if (c > 0) {
+      for (int top = c - 1;; top -= 32) {
+        const int j = top - lane;
+        const u64 v =
+            j >= 0 ? wait_status(src_status + (long long)j * n + o, false)
+                   : kFlagPrefix;  // before the first tile: a prefix of 0
+        const unsigned done = __ballot_sync(0xffffffffu, (v >> 62) == 2);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        u32 x = lane <= stop ? (u32)v : 0u;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, d);
+        excl += x;
+        if (done) break;
+      }
+      if (lane == 0) store_status(st + o, kFlagPrefix | (excl + count[o]));
     }
+    if (lane == 0) first[o] = (int)excl;
   }
-  slot_out[i] = sl;
-  owner_out[i] = o;
+  __syncthreads();
+  if (c == tiles - 1) {  // the source's totals: its overflow
+    int over = 0;
+    for (int o = threadIdx.x; o < n; o += kRouteThreads) {
+      const long long total = (long long)first[o] + count[o];
+      if (total > cap) over += (int)(total - cap);
+    }
+    if (over) atomicAdd(&sh_over, over);
+    __syncthreads();
+    if (threadIdx.x == 0) overflow[s] = sh_over;
+  }
+  // slots: a warp's windows of one owner take consecutive slots, so its
+  // stores of that owner form one run
+  uint2* dst = send + s * n * cap;
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    if (p0 + k * 32 >= Pn) break;
+    const int o = own[k];
+    int sl = -1;
+    if (o >= 0) {
+      const long long slot =
+          (long long)first[o] + wc[o] + (rank[k] & 0xFFFF);
+      if (slot < cap) {
+        sl = (int)slot;
+        dst[o * cap + slot] = make_uint2(local[k], (u32)rank[k] >> 16);
+      }
+    }
+    slot_out[i0 + k * 32] = sl;
+    owner_out[i0 + k * 32] = o;
+  }
 }
 
 // K7b: each thread takes kProbeSlots received slots of owner h =
@@ -254,33 +375,51 @@ __global__ void shard_return_kernel(const uint2* __restrict__ back,
 
 }  // namespace
 
-// counts and offs are int scratch of n_src * n * ceil(Pn / 256) each.
+// Bytes of K7a's scratch for n_src sources of Pn windows and n owners: a
+// ticket, then a status word per (source, tile, owner).
+extern "C" long long shkk_shard_route_scratch(int n_src, long long Pn,
+                                              int n) {
+  const long long tiles = (Pn + kTile - 1) / kTile;
+  return 8 + 8 * (long long)n_src * tiles * n;
+}
+
 extern "C" int shkk_shard_route(const void* idx_hi, const void* idx_lo,
                                 const void* win_valid, int n_src,
                                 long long Pn, int n, long long wps, int wide,
-                                long long cap, void* counts, void* offs,
-                                void* send, void* slot, void* owner,
-                                void* overflow, void* stream) {
+                                long long cap, void* scratch, void* send,
+                                void* slot, void* owner, void* overflow,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(send, 0xFF, (size_t)n_src * n * cap * 8, st);
-  if (e == cudaSuccess) e = cudaMemsetAsync(overflow, 0, (size_t)n_src * 4, st);
+  if (n_src <= 0) return (int)cudaGetLastError();
+  if (n < 1 || Pn < 0 || Pn > 0x7FFFFFFFll || cap < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (Pn == 0) {  // no window: every slot a tail, no overflow
+    e = cudaMemsetAsync(send, 0xFF, (size_t)n_src * n * cap * 8, st);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(overflow, 0, (size_t)n_src * 4, st);
+    return (int)e;
+  }
+  const int tiles = (int)((Pn + kTile - 1) / kTile);
+  e = cudaMemsetAsync(scratch, 0,
+                      (size_t)shkk_shard_route_scratch(n_src, Pn, n), st);
   if (e != cudaSuccess) return (int)e;
-  if (Pn <= 0 || n_src <= 0) return (int)cudaGetLastError();
-  const int nchunks = (int)((Pn + kChunk - 1) / kChunk);
-  const dim3 grid(nchunks, n_src);
-  route_count_kernel<<<grid, kChunk, n * sizeof(int), st>>>(
+  const size_t smem = route_smem(n);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(route_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long n_tiles = (long long)n_src * tiles;
+  const long long chunks = (cap + kFillChunk - 1) / kFillChunk;
+  const long long units = (long long)n_src * n * chunks;
+  const long long nfill = min(units, (long long)kMaxFillBlocks);
+  route_kernel<<<(unsigned)(n_tiles + nfill), kRouteThreads, smem, st>>>(
       (const u32*)idx_hi, (const u32*)idx_lo, (const uint8_t*)win_valid, Pn,
-      n, wps, wide, nchunks, (int*)counts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  route_scan_kernel<<<n_src * n, kScanThreads, 0, st>>>(
-      (const int*)counts, nchunks, n, cap, (int*)offs, (int*)overflow);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  route_scatter_kernel<<<grid, kChunk, kWarps * n * sizeof(int), st>>>(
-      (const u32*)idx_hi, (const u32*)idx_lo, (const uint8_t*)win_valid, Pn,
-      n, wps, wide, nchunks, cap, (const int*)offs, (uint2*)send, (int*)slot,
-      (int*)owner);
+      n, wps, wide, cap, tiles, n_tiles, units, chunks, (unsigned*)scratch,
+      (u64*)scratch + 1, (uint2*)send, (int*)slot, (int*)owner,
+      (int*)overflow);
   return (int)cudaGetLastError();
 }
 

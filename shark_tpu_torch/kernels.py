@@ -42,8 +42,8 @@ NVCC_FLAGS = [
 # Bloom filter's routing round (route, owner probe, return; all three in
 # csrc/route.cu). The finish takes three launches of its source (a
 # batch-wide group pass, a warp per read, a block per read too heavy for a
-# warp) and the route three (count, scan, scatter); each counts as one
-# kernel. The last two are the experiment
+# warp) and the route a memset of its scratch and one launch; each counts
+# as one kernel. The last two are the experiment
 # kernels (the per-probe tile gather and the resident-table bucket match
 # of shark_tpu_torch/experiments/), which no classify path launches.
 KERNELS = ("front", "probe", "finish", "pairs", "probe_xl", "classic",
@@ -199,10 +199,10 @@ _SIGNATURES = {
                       _VP, _VP],
     # idx_hi, idx_lo, win_valid, n, bf_rank, pay, tagv, payv, stream
     "shkk_classic": [_VP, _VP, _VP, _L, _VP, _VP, _VP, _VP, _VP],
-    # idx_hi, idx_lo, win_valid, n_src, Pn, n, wps, wide, cap, counts,
-    # offs, send, slot, owner, overflow, stream
+    # idx_hi, idx_lo, win_valid, n_src, Pn, n, wps, wide, cap, scratch,
+    # send, slot, owner, overflow, stream
     "shkk_shard_route": [_VP, _VP, _VP, _I, _L, _I, _L, _I, _L, _VP, _VP,
-                         _VP, _VP, _VP, _VP, _VP],
+                         _VP, _VP, _VP, _VP],
     # recv, n_owners, per_owner, bf_rank, wps, pay, rows_max, reply, stream
     "shkk_shard_probe": [_VP, _I, _L, _VP, _L, _VP, _L, _VP, _VP],
     # back, Pn, total, n, cap, owner, slot, tagv, payv, stream
@@ -229,6 +229,9 @@ def lib():
             so.shkk_error_string.restype = ctypes.c_char_p
             so.shkk_max_smem_optin.argtypes = []
             so.shkk_max_smem_optin.restype = ctypes.c_int
+            # n_src, Pn, n -> bytes of the router's scratch
+            so.shkk_shard_route_scratch.argtypes = [_I, _L, _I]
+            so.shkk_shard_route_scratch.restype = _L
             _lib = so
         return _lib
 

@@ -62,7 +62,7 @@ from shark_tpu_torch.index.structure import SharkIndex
 from shark_tpu_torch.parallel.mesh import make_devices
 
 MISS_SENTINEL = 0xFFFFFFFF
-# Shards a routing launch takes: its shared memory holds 9 ints per shard
+# Shards a routing launch takes: its shared memory holds 10 ints per shard
 MAX_SHARDS = 1024
 _U32 = 0xFFFFFFFF
 
@@ -205,17 +205,21 @@ def shard_route(idx_hi, idx_lo, win_valid, *, n: int, wps: int, wide: bool,
         raise ValueError("shard_route takes [S, b, Ls] windows")
     S, b, Ls = idx_lo.shape
     Pn = b * Ls
-    nchunks = -(-Pn // 256)
-    counts = torch.empty((2, S * n * nchunks), dtype=torch.int32, device=dev)
+    if Pn >= 1 << 31:
+        raise ValueError(f"shard_route: {Pn} windows a source: slots are "
+                         "int32")
+    lib = kernels.lib()
+    scratch = torch.empty((lib.shkk_shard_route_scratch(S, Pn, n),),
+                          dtype=torch.uint8, device=dev)
     send = torch.empty((S, n, cap, 2), dtype=torch.uint32, device=dev)
     slot = torch.empty((S, b, Ls), dtype=torch.int32, device=dev)
     owner = torch.empty((S, b, Ls), dtype=torch.int32, device=dev)
     overflow = torch.empty((S,), dtype=torch.int32, device=dev)
-    rc = kernels.lib().shkk_shard_route(
+    rc = lib.shkk_shard_route(
         idx_hi.data_ptr(), idx_lo.data_ptr(), win_valid.data_ptr(), S, Pn, n,
-        wps, int(wide), cap, counts[0].data_ptr(), counts[1].data_ptr(),
-        send.data_ptr(), slot.data_ptr(), owner.data_ptr(),
-        overflow.data_ptr(), kernels.stream(dev))
+        wps, int(wide), cap, scratch.data_ptr(), send.data_ptr(),
+        slot.data_ptr(), owner.data_ptr(), overflow.data_ptr(),
+        kernels.stream(dev))
     kernels.check(rc, "shard_route")
     kernels.LAUNCHES.add("shard_route")
     return send, slot, owner, overflow

@@ -19,8 +19,13 @@ stash table), on hand-made entry16 4-slot and entry8 tables with up to
 200 stash rows and repeated positions, and with a stash of padding rows
 only, the sharded Bloom filter's routing kernels at n in {1, 2, 8}
 shards, narrow and wide, with and without overflow (and reprobe from
-another thread on another stream), the owner probe on hand-made slots
-(an owner that received nothing, ranks past the pay rows), whole
+another thread on another stream), the router at its edges (one window,
+under one tile, one tile, a count no multiple of the tile, n in {1, 2, 8,
+64, 1024}, every window owned by one shard, an all-tail cap, a cap of 8,
+every window invalid, wide) and 50 repeated calls giving the same bytes,
+the owner probe on hand-made slots (an owner that received nothing,
+ranks past the pay rows), the classic probe with a pay row 0 whose
+second word is not 0 (the payload of every miss), whole
 pipelines on random workloads (one with a 17000-base read), and the two
 experiment kernels (P1, P2) at small, mid and default sizes, P1 at a row
 count that is not a power of two, their refusals and their stream.
@@ -995,6 +1000,123 @@ def test_reprobe_on_another_thread_and_stream(cuda):
     th.join()
     assert clf.cap_mult > 1
     equal(out["got"], want)
+
+
+# ---------------------------------------------------------------------------
+# K7a at its edges, and K5 with a pay row 0 whose second word is not 0
+# ---------------------------------------------------------------------------
+
+WIDE_BITS = (1 << 37) + (5 << 33)
+# name: (sources, reads a source, windows a read, shards, cap, windows);
+# the kernel's tile is 4096 windows
+ROUTE_EDGES = {
+    "one_window": (2, 1, 1, 8, 8, "random"),
+    "under_one_tile": (1, 3, 88, 2, 200, "random"),
+    "one_tile": (2, 64, 64, 8, 600, "random"),
+    "ragged_tiles": (3, 613, 88, 8, 7000, "random"),
+    "one_owner": (8, 8192, 88, 8, 500_000, "one_owner"),
+    "all_tail": (2, 300, 88, 8, 2 * 300 * 88, "random"),
+    "cap8": (4, 2000, 88, 8, 8, "random"),
+    "all_invalid": (2, 200, 88, 8, 3000, "invalid"),
+    "wide": (8, 1024, 88, 8, 12000, "wide"),
+}
+
+
+def route_windows(cuda, S, b, Ls, n, kind, seed):
+    """Windows of S sources on the card whose Bloom words fall in n
+    shards of wps words (a > 2^36-bit filter for "wide"; every word in
+    the last shard for "one_owner"), 10% invalid (all for "invalid"):
+    (hi, lo, valid [S, b, Ls], wps)."""
+    rng = np.random.default_rng(seed)
+    wps = WIDE_BITS // 32 // n if kind == "wide" else (1 << 20) + 3
+    words = rng.integers(0, n * wps, size=(S, b, Ls), dtype=np.int64)
+    if kind == "one_owner":
+        words = (n - 1) * wps + words % wps
+    addr = words.astype(np.uint64) * np.uint64(32) + rng.integers(
+        0, 32, size=words.shape).astype(np.uint64)
+    valid = rng.random(words.shape) < 0.9
+    if kind == "invalid":
+        valid[:] = False
+    hi = (addr >> np.uint64(32)).astype(np.uint32)
+    lo = (addr & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return (*(torch.from_numpy(a).to(cuda) for a in (hi, lo, valid)), wps)
+
+
+def check_route(hi, lo, valid, **route):
+    got = sharded_bf.shard_route(hi, lo, valid, **route)
+    equal(got, sharded_bf.shard_route_plain(hi, lo, valid, **route))
+    return got
+
+
+@pytest.mark.parametrize("case", list(ROUTE_EDGES))
+def test_shard_route_edges(cuda, case):
+    """K7a == its plain version: one window, fewer windows than a tile,
+    exactly one tile, a window count that is no multiple of the tile,
+    every window owned by one shard (each tile's look-back walks back over
+    all 176 tiles of its source, and the owner overflows), a cap past
+    every total (the whole buffer is tail), a cap of 8 with heavy
+    overflow, every window invalid, and the wide split."""
+    S, b, Ls, n, cap, kind = ROUTE_EDGES[case]
+    hi, lo, valid, wps = route_windows(cuda, S, b, Ls, n, kind, len(case))
+    send, slot, owner, overflow = check_route(
+        hi, lo, valid, n=n, wps=wps, wide=kind == "wide", cap=cap)
+    routed = int((slot >= 0).sum())
+    tail = int((send.view(torch.int32)[..., 0] == -1).sum())
+    assert routed + tail == S * n * cap
+    if case in ("one_owner", "cap8"):
+        assert bool((overflow > 0).all())
+    if case == "all_tail":
+        assert int(overflow.sum()) == 0 and tail > routed
+    if case == "all_invalid":
+        assert routed == 0 and int(overflow.sum()) == 0
+        assert bool((owner == -1).all())
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 64, 1024])
+def test_shard_route_shard_counts(cuda, n):
+    """K7a == its plain version at 1 to 1024 owners, 44 tiles a source,
+    at a cap near the mean count of a (source, owner) row (some rows
+    overflow, the rest have tails)."""
+    S, b, Ls = 2, 2048, 88
+    hi, lo, valid, wps = route_windows(cuda, S, b, Ls, n, "random", n)
+    check_route(hi, lo, valid, n=n, wps=wps, wide=False,
+                cap=max(8, b * Ls // n))
+
+
+def test_shard_route_repeated_calls(cuda):
+    """50 calls of K7a on the record shape (8 sources of 8192 reads x 88
+    windows, 176 tiles each) give the same bytes: the tiles' order is
+    their tickets', which changes from call to call, and the result must
+    not."""
+    hi, lo, valid, wps = route_windows(cuda, 8, 8192, 88, 8, "random", 50)
+    route = dict(n=8, wps=wps, wide=False, cap=95_000)
+    first = check_route(hi, lo, valid, **route)
+    for _ in range(50):
+        again = sharded_bf.shard_route(hi, lo, valid, **route)
+        for a, f in zip(again, first):
+            assert torch.equal(a, f)
+
+
+@pytest.mark.parametrize("B", [3, 1000])
+def test_classic_kernel_marked_pay_row0(cuda, B):
+    """K5 == its plain version with pay row 0's second word not 0, so
+    that every miss and every invalid window carries shark_tpu's payload
+    (pay[0, 1] & 0xFFFF) << 16, on B * 88 windows (no multiple of the
+    block) with hits of every tag."""
+    genes, index = txome_like_index(17, 1 << 26)
+    bf_rank, pay, _, _ = step.build_device_index(index)
+    pay[0, 1] = 0x1234ABCD
+    bf_rank, pay = (torch.from_numpy(a).to(cuda) for a in (bf_rank, pay))
+    hi, lo, valid = windows(cuda, genes, B, 17, 1 << 26, 60 + B)
+    tag, payv = step.probe_tags(hi, lo, valid, bf_rank, pay)
+    equal((tag, payv), step.probe_tags_plain(hi, lo, valid, bf_rank, pay))
+    tag, payv = tag.view(torch.int32), payv.view(torch.int32)
+    miss = tag == 0
+    assert bool((~valid).any()) and bool((miss & valid).any())
+    assert bool((payv[miss] == 0xABCD0000 - (1 << 32)).all())
+    if B == 1000:
+        for t in (1, 2, 3):
+            assert bool((tag == t).any()), f"no tag-{t} windows"
 
 
 # ---------------------------------------------------------------------------
