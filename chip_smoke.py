@@ -322,7 +322,7 @@ def bound(nbytes: float, ops: float):
 def op_name(key):
     """A profiler record's kernel name without its namespace and
     arguments."""
-    return key.split("(")[0].replace("(anonymous namespace)::", "").strip() \
+    return key.replace("(anonymous namespace)::", "").split("(")[0].strip() \
         or key
 
 

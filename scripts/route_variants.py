@@ -18,17 +18,18 @@ call (chip_smoke.host_ms).
 Both run on chip_smoke.py's 50,000-gene transcriptome index at B = 65536,
 L = 104.
 
-K7a: this checkout's route.cu at several block and tile shapes, each with
-its tiles' tickets in source-major order (as committed) and interleaved
-over the sources, and with the look-back cut short (route_variants, with
-the registers ptxas gave each), and each OTHER_CHECKOUT's route.cu that
+K7a: this checkout's route.cu at four block and tile shapes, with its
+send entries staged before the look-back rather than after it, or stored
+by each window rather than staged by owner, with ballots rather than
+__match_any_sync, with an integer division rather than a multiply and
+shift, with ptxas held to 3 or 4 blocks an SM, and cut for timing (no look-back,
+no peers, no send or no slot and owner stores: wrong results), with the
+registers ptxas gave each, and each OTHER_CHECKOUT's route.cu that
 differs (such as the parent's count, scan and scatter launches after two
 memsets), on the windows of the index split into 8 shards on the card at
 chip_smoke.py's cap.
 
-K5: this checkout's classic.cu with a thread taking 1 (as committed), 2
-or 4 windows (kWindows; every (word, rank) load of a thread issued before
-its first pay load), each OTHER_CHECKOUT's classic.cu that differs, and
+K5: this checkout's classic.cu, each OTHER_CHECKOUT's that differs, and
 that one with its pay load skipped on a miss (timing only: a miss then
 gives payload 0); the committed kernel on the same windows permuted so
 that each block's 256 are sorted by Bloom word (the locality a sort
@@ -56,63 +57,89 @@ from shark_tpu_torch.parallel import sharded_bf as sb
 B, L = 65536, 104
 ROUNDS = re.compile(r"constexpr int kRounds = \d+;")
 THREADS = re.compile(r"constexpr int kRouteThreads = \d+;")
-# tiles in source-major ticket order, and interleaved over the sources
-BY_SOURCE = "  const long long s = t / tiles;\n  const int c = (int)(t % tiles);"
-INTERLEAVED = ("  const long long s = t % (n_tiles / tiles);\n"
-               "  const int c = (int)(t / (n_tiles / tiles));")
-# every tile publishes its count as an inclusive prefix (timing only: the
-# look-back stops at the tile before; slots are wrong)
-COUNT_FLAG = "(c == 0 ? kFlagPrefix : kFlagCount)"
-# each lane its own group of owners (timing only: ranks are wrong)
-MATCH = "__match_any_sync(0xffffffffu, own[k])"
-WINDOWS = re.compile(r"constexpr int kWindows = \d+;")
 # the router's entry point before it took one scratch buffer
 OLD_ROUTE = "void* counts, void* offs"
 # the classic probe before a miss skipped its pay load
 OLD_PAY = "const uint2 pw = pay[rank];"
 SKIP_PAY = "const uint2 pw = hit ? pay[rank] : make_uint2(0u, 0u);"
 _VP, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+PEERS = "__match_any_sync(0xffffffffu, o)"
+BOUNDS = "__launch_bounds__(kRouteThreads) route_kernel("
+STAGE = ("      stage[group[o] + r] = make_uint2(local[k], (u32)(key[k] >> 11) "
+         "& 31u);\n      stage_owner[group[o] + r] = (unsigned short)o;\n")
+LOOK_BACK = "  // look-back: a warp per owner"
+EARLY = """  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    if (p0 + k * 32 >= Pn) break;
+    const int o = (key[k] & 0x7FF) - 1;
+    if (o >= 0) {
+      const int r = wc[o] + (key[k] >> 16);
+""" + STAGE + """    }
+  }
+"""
+STAGED_LOOP = "for (int j = threadIdx.x; j < routed; j += kRouteThreads) {"
+# the warp's peers from one ballot a bit of the owner, as many as n + 1
+# needs, not __match_any_sync
+BALLOTS = """__device__ __forceinline__ unsigned peers_of(int key, int bits) {
+  unsigned peers = 0xffffffffu;
+  for (int b = 0; b < bits; ++b) {
+    const bool on = (key >> b) & 1;
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    peers &= on ? m : ~m;
+  }
+  return peers;
+}
+
+"""
+EDITS = {
+    "ballots": (("// Shared memory of a K7a block", BALLOTS
+                 + "// Shared memory of a K7a block"),
+                (PEERS, "peers_of(o + 1, 32 - __clz(n))")),
+    # exact: ptxas held to 64 or 80 registers (4 or 3 blocks an SM)
+    "min4blocks": ((BOUNDS, BOUNDS.replace("(kRouteThreads)",
+                                           "(kRouteThreads, 4)")),),
+    "min3blocks": ((BOUNDS, BOUNDS.replace("(kRouteThreads)",
+                                           "(kRouteThreads, 3)")),),
+    # exact: the send entries staged before the look-back, not after it
+    "early": ((STAGE, ""), (LOOK_BACK, EARLY + LOOK_BACK)),
+    # exact: each window stores its own send entry after the look-back (a
+    # warp's entries of one owner form a run), nothing staged
+    "unstaged": ((STAGE, "      if (sl >= 0)\n        send[(s * n + o) * cap + "
+                         "slot] = make_uint2(local[k], (u32)(key[k] >> 11) "
+                         "& 31u);\n"),
+                 (STAGED_LOOP, STAGED_LOOP.replace("j < routed", "j < 0"))),
+    # exact: the narrow owner by an integer division, not multiply-shift
+    "divide": (("(int)(((u64)word_lo * magic) >> shift)", "w / (int)wps"),),
+    # timing only (wrong slots): no look-back, each tile taking its slots
+    # from kTile / n per earlier tile; every tile's count published as its
+    # inclusive prefix; each lane its own group of peers
+    "nolookback": (("for (int top = c - 1;; top -= 32) {",
+                    "for (int top = -1;; top -= 32) {"),
+                   ("if (lane == 0) first[o] = (int)excl;",
+                    "if (lane == 0) first[o] = (int)excl + c * (kTile / n);")),
+    "quick": (("(c == 0 ? kFlagPrefix : kFlagCount)", "kFlagPrefix"),),
+    "nopeers": ((PEERS, "(1u << lane)"),),
+    # timing only (outputs left unwritten): no send stores; no slot and
+    # owner stores
+    "nosend": (("if (slot < cap) dst[o * cap + slot] = stage[j];",
+                "if (slot == -7) dst[0] = stage[j];"),),
+    "noslot": (("    slot_out[i0 + k * 32] = sl;",
+                "    if (sl == -7) slot_out[i0] = sl;"),
+               ("    owner_out[i0 + k * 32] = o;",
+                "    if (o == -7) owner_out[i0] = o;")),
+}
+EXACT = ("ballots", "min4blocks", "min3blocks", "early", "unstaged",
+         "divide")
 
 
-# timing-only cuts of K7a: no look-back (each tile takes its slots from
-# kTile / n per earlier tile), no send stores, no slot and owner stores
-NO_LOOKBACK = (("for (int top = c - 1;; top -= 32) {",
-                "for (int top = -1;; top -= 32) {"),
-               ("if (lane == 0) first[o] = (int)excl;",
-                "if (lane == 0) first[o] = (int)excl + c * (kTile / n);"))
-NO_SEND = (("dst[o * cap + slot] = make_uint2(local[k], (u32)rank[k] >> 16);",
-            ""),)
-NO_SLOT = (("slot_out[i0 + k * 32] = sl;\n    owner_out[i0 + k * 32] = o;",
-            "if (sl == -7) slot_out[i0] = o;"),)
-# the look-back's spin backs off as the fill blocks' does
-BACKOFF = (("if (prefix) __nanosleep(200);", "__nanosleep(prefix ? 200 : 32);"),)
-FILL_BLOCKS = re.compile(r"constexpr int kMaxFillBlocks = \d+;")
-FILL_CHUNK = re.compile(r"constexpr int kFillChunk = \d+;")
-
-
-def route_source(src, threads, rounds, interleaved=False, quick=False,
-                 nomatch=False, fill_blocks=None, fill_chunk=None,
-                 edits=()):
+def route_source(src, threads, rounds, edits=()):
     """route.cu with a K7a block of `threads` threads, each taking
-    `rounds` windows (a tile of threads * rounds, at least 2048), its
-    tiles' tickets interleaved over the sources, and (timing only) the
-    look-back cut short (`quick`) or no __match_any_sync (`nomatch`)."""
-    assert THREADS.search(src) and ROUNDS.search(src) and BY_SOURCE in src
-    assert COUNT_FLAG in src and MATCH in src
+    `rounds` windows (a tile of threads * rounds, at least 2048), and the
+    text edits of EDITS."""
+    assert THREADS.search(src) and ROUNDS.search(src)
     text = THREADS.sub(f"constexpr int kRouteThreads = {threads};", src)
     text = ROUNDS.sub(f"constexpr int kRounds = {rounds};", text)
-    if interleaved:
-        text = text.replace(BY_SOURCE, INTERLEAVED)
-    if quick:
-        text = text.replace(COUNT_FLAG, "kFlagPrefix")
-    if nomatch:
-        text = text.replace(MATCH, "(1u << lane)")
-    if fill_blocks is not None:
-        text = FILL_BLOCKS.sub(f"constexpr int kMaxFillBlocks = "
-                               f"{fill_blocks};", text)
-    if fill_chunk is not None:
-        text = FILL_CHUNK.sub(f"constexpr int kFillChunk = {fill_chunk};",
-                              text)
     for a, b in edits:
         assert a in text, a
         text = text.replace(a, b)
@@ -121,33 +148,15 @@ def route_source(src, threads, rounds, interleaved=False, quick=False,
 
 def route_variants(others):
     """{name: (build waiter, takes the old counts and offs, exact)}: this
-    checkout's K7a at 256 threads x 8, 16 (as committed) or 32 windows,
-    512 x 8 and 128 x 16, each with its tiles in source-major or
-    interleaved order, and 256 x 16 with the look-back cut short or without
-    __match_any_sync (timing only); each OTHER_CHECKOUT's route.cu that
-    differs."""
+    checkout's K7a at 256 threads x 16 windows (as committed), 256 x 8,
+    512 x 8 and 128 x 32, and at 256 x 16 with each of EDITS; each
+    OTHER_CHECKOUT's route.cu that differs."""
     src, inc = pv.source(pv.OWN_ROOT, "route.cu")
-    texts = {}
-    for threads, rounds in ((256, 8), (256, 16), (256, 32), (512, 8),
-                            (128, 16)):
-        for il in (False, True):
-            name = f"t{threads}_r{rounds}" + ("_interleaved" if il else "")
-            texts[name] = (route_source(src, threads, rounds, il), inc, True)
-    texts["t256_r16_quick"] = (route_source(src, 256, 16, quick=True), inc,
-                               False)
-    texts["t256_r16_nomatch"] = (route_source(src, 256, 16, nomatch=True),
-                                 inc, False)
-    texts["t256_r16_nofill"] = (route_source(src, 256, 16, fill_blocks=0),
-                                inc, False)
-    for name, edits, exact in (("nolookback", NO_LOOKBACK, False),
-                               ("nosend", NO_SEND, False),
-                               ("noslot", NO_SLOT, False),
-                               ("backoff", BACKOFF, True)):
-        texts[f"t256_r16_{name}"] = (route_source(src, 256, 16, edits=edits),
-                                     inc, exact)
-    for blocks, chunk in ((2048, 2048), (264, 16384), (2048, 16384)):
-        texts[f"t256_r16_fill{blocks}x{chunk}"] = (route_source(
-            src, 256, 16, fill_blocks=blocks, fill_chunk=chunk), inc, True)
+    texts = {f"t{t}_r{r}": (route_source(src, t, r), inc, True)
+             for t, r in ((256, 16), (256, 8), (512, 8), (128, 32))}
+    for name, edits in EDITS.items():
+        texts[name] = (route_source(src, 256, 16, edits), inc,
+                       name in EXACT)
     for k, other in enumerate(others):
         text, oinc = pv.source(other, "route.cu")
         if text != src:
@@ -176,11 +185,11 @@ def say_registers(names):
 
 
 def classic_variants(others):
-    """{name: (build waiter, exact)} of K5's variants."""
+    """{name: (build waiter, exact)} of K5's variants: this checkout's
+    classic.cu, each OTHER_CHECKOUT's that differs, and that one with its
+    miss's pay load skipped (timing only) where it has one."""
     src, inc = pv.source(pv.OWN_ROOT, "classic.cu")
-    assert WINDOWS.search(src)
-    texts = {f"w{k}": (WINDOWS.sub(f"constexpr int kWindows = {k};", src),
-                       inc, True) for k in (1, 2, 4)}
+    texts = {"committed": (src, inc, True)}
     for k, other in enumerate(others):
         text, oinc = pv.source(other, "classic.cu")
         if text == src:
@@ -250,6 +259,28 @@ def say_device(calls, bind):
               f"{ops}, host {p['host_ms'] * 1e3:.1f} us{flag}", flush=True)
 
 
+def say_allocations(swins, n, wps, cap):
+    """The host time of the committed wrapper (sb.shard_route) beside
+    that of its five output and scratch allocations alone."""
+    S, b, Ls = swins[1].shape
+    dev = swins[1].device
+    lib = kernels.lib()
+
+    def allocations():
+        torch.empty((lib.shkk_shard_route_scratch(S, b * Ls, n),),
+                    dtype=torch.uint8, device=dev)
+        torch.empty((S, n, cap, 2), dtype=torch.uint32, device=dev)
+        torch.empty((S, b, Ls), dtype=torch.int32, device=dev)
+        torch.empty((S, b, Ls), dtype=torch.int32, device=dev)
+        torch.empty((S,), dtype=torch.int32, device=dev)
+
+    def wrapper():
+        return sb.shard_route(*swins, n=n, wps=wps, wide=False, cap=cap)
+    print(f"  host us a call (200 calls): shard_route "
+          f"{tff.host_us(wrapper, 200):.1f}, its allocations alone "
+          f"{tff.host_us(allocations, 200):.1f}", flush=True)
+
+
 def block_sorted(hi, lo, valid, block=256):
     """The windows permuted so that each run of `block` is sorted by its
     Bloom word (invalid windows last)."""
@@ -301,6 +332,7 @@ def main() -> int:
     pv.say_runs(pv.alternate(calls, {"8 shards": lambda c: lambda: c(
         *swins)}))
     say_device(calls, lambda c: lambda: c(*swins))
+    say_allocations(swins, n, wps, cap)
     recv = cs._transposed(want[0])
     tables = sclf.dix[dev]
 

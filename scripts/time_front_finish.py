@@ -57,8 +57,7 @@ def device_breakdown(cs, fn):
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0].replace("(anonymous namespace)::", "").strip()
-            or e.key: (round(t / e.count / 1e3, 4), e.count)
+    return {cs.op_name(e.key): (round(t / e.count / 1e3, 4), e.count)
             for e, t in cs.device_records(prof)}
 
 

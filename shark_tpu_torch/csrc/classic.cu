@@ -26,55 +26,36 @@
 // dependent random reads: the kernel takes 1.01x a bare gather of the same
 // (word, rank) rows and then pay rows. Skipping the miss's pay row gained
 // nothing (it was an L1 hit on row 0), nor did 2 or 4 windows a thread
-// or windows sorted by word within a block; so a window a thread.
+// (each issuing every (word, rank) load before its first pay load) or
+// windows sorted by word within a block; so a window a thread.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWindows = 1;  // windows a thread takes, kThreads apart
 
 __global__ void __launch_bounds__(kThreads) classic_kernel(
     const u32* __restrict__ idx_hi, const u32* __restrict__ idx_lo,
     const uint8_t* __restrict__ win_valid, long long n,
     const uint2* __restrict__ bf_rank, const uint2* __restrict__ pay,
     u32* __restrict__ tagv, u32* __restrict__ payv) {
-  const long long i0 =
-      (long long)blockIdx.x * (kThreads * kWindows) + threadIdx.x;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
   const u32 miss = (pay[0].y & 0xFFFFu) << 16;
-  uint2 wr[kWindows];
-  u32 bit[kWindows];
-  bool ok[kWindows];
-  // every (word, rank) load of the thread before its first pay load
-#pragma unroll
-  for (int j = 0; j < kWindows; ++j) {
-    const long long i = i0 + j * kThreads;
-    ok[j] = i < n && win_valid[i] != 0;
-    wr[j] = make_uint2(0u, 0u);
-    bit[j] = 0u;
-    if (ok[j]) {
-      const u32 lo = idx_lo[i];
-      bit[j] = lo & 31u;
-      wr[j] = bf_rank[((u64)idx_hi[i] << 27) | (lo >> 5)];
-    }
+  bool hit = false;
+  uint2 pw = make_uint2(0u, 0u);
+  if (win_valid[i] != 0) {
+    const u32 lo = idx_lo[i];
+    const u32 bit = lo & 31u;
+    const uint2 wr = bf_rank[((u64)idx_hi[i] << 27) | (lo >> 5)];
+    hit = ((wr.x >> bit) & 1u) != 0;
+    if (hit) pw = pay[wr.y + __popc(wr.x & ((1u << bit) - 1u))];
   }
-  uint2 pw[kWindows];
-#pragma unroll
-  for (int j = 0; j < kWindows; ++j) {
-    ok[j] = ok[j] && ((wr[j].x >> bit[j]) & 1u) != 0;  // a hit
-    pw[j] = ok[j] ? pay[wr[j].y + __popc(wr[j].x & ((1u << bit[j]) - 1u))]
-                  : make_uint2(0u, 0u);
-  }
-#pragma unroll
-  for (int j = 0; j < kWindows; ++j) {
-    const long long i = i0 + j * kThreads;
-    if (i >= n) break;
-    const u32 tag = pw[j].x >> 30;
-    tagv[i] = tag;
-    payv[i] = !ok[j]     ? miss
-              : tag == 3u ? pw[j].y
-                          : (pw[j].x & 0xFFFFu) | ((pw[j].y & 0xFFFFu) << 16);
-  }
+  const u32 tag = pw.x >> 30;
+  tagv[i] = tag;
+  payv[i] = !hit        ? miss
+            : tag == 3u ? pw.y
+                        : (pw.x & 0xFFFFu) | ((pw.y & 0xFFFFu) << 16);
 }
 
 }  // namespace
@@ -84,7 +65,7 @@ extern "C" int shkk_classic(const void* idx_hi, const void* idx_lo,
                             const void* bf_rank, const void* pay, void* tagv,
                             void* payv, void* stream) {
   if (n > 0) {
-    classic_kernel<<<grid_for(n, kThreads * kWindows), kThreads, 0,
+    classic_kernel<<<grid_for(n, kThreads), kThreads, 0,
                      (cudaStream_t)stream>>>(
         (const u32*)idx_hi, (const u32*)idx_lo, (const uint8_t*)win_valid, n,
         (const uint2*)bf_rank, (const uint2*)pay, (u32*)tagv, (u32*)payv);

@@ -38,20 +38,30 @@
 // an atomic ticket, not blockIdx: blocks start in no order, and a block
 // that waited on a tile that had not started could wait forever; a
 // ticket is taken at a block's start, so every earlier tile is running.
-// The blocks whose ticket comes after every tile fill the tails
-// [min(total, cap), cap) of each (source, owner) with the sentinel, once
-// the source's last tile has published its totals; that tile also writes
-// the source's overflow. So the send buffer is written once, with no
-// memset of the whole of it. The status words and the ticket are the
-// only scratch (one small memset a call).
+// The tile stages its send entries in shared memory grouped by owner (a
+// counting sort of the tile) and stores each owner's run of consecutive
+// slots with consecutive threads. A source's tails, [min(total, cap), cap)
+// of each of its (source, owner) rows, get the sentinel from fill blocks
+// whose tickets follow the next source's tiles: they wait for the
+// source's last tile to publish its totals (that tile also writes the
+// source's overflow), which it mostly has. So the send buffer is written
+// once, with no memset of the whole of it; the status words and the
+// ticket are the only scratch (one small memset a call).
 //
 // Bound: bytes. K7a must read 9 bytes per window and write 8 per window
-// (slot and owner), 8 per routed slot and 8 per tail slot; it does, and
-// stores a warp's slots of one owner in a contiguous run. K7b reads one
-// 8-byte (word, rank) row per routed window and one 8-byte pay row per
-// hit, two dependent random loads; K7c reads 8 bytes of owner and slot and
-// one 8-byte reply per routed window and writes 8. Those two are one
-// thread per window or slot; their random loads cost a 32-byte sector
+// (slot and owner), 8 per routed slot and 8 per tail slot, and it moves
+// just those, at about 2 TB/s. Measured on the card
+// (scripts/route_variants.py): storing each window's send entry itself (a
+// warp's entries of one owner then form a run) cost 19-22% more than the
+// staged runs, staging before the look-back (more registers, fewer
+// blocks an SM) 13%, one ballot a bit of the owner in place of
+// __match_any_sync 3-8%, an integer division for the owner 3%; the
+// look-back takes about a tenth of the kernel, the send and the slot and
+// owner stores each about a seventh. K7b
+// reads one 8-byte (word, rank) row per routed window and one 8-byte pay
+// row per hit, two dependent random loads; K7c reads 8 bytes of owner and
+// slot and one 8-byte reply per routed window and writes 8. Those two are
+// one thread per window or slot; their random loads cost a 32-byte sector
 // each.
 #include "common.cuh"
 
@@ -60,10 +70,10 @@ namespace {
 constexpr int kRouteThreads = 256;  // K7a: threads a block
 constexpr int kRouteWarps = kRouteThreads / 32;
 constexpr int kRounds = 16;  // K7a: windows a thread takes
+constexpr int kHalf = kRounds / 2;  // windows a thread loads at once
 constexpr int kWarpTile = 32 * kRounds;
 constexpr int kTile = kRouteThreads * kRounds;  // windows a tile
-constexpr int kFillChunk = 2048;  // tail slots a fill block takes at once
-constexpr int kMaxFillBlocks = 512;
+constexpr int kFillSpan = 16384;  // tail slots a fill block takes
 // K7a's status words: a flag in the top two bits, a count in the low 32
 constexpr u64 kFlagCount = 1ull << 62;   // the tile's own count
 constexpr u64 kFlagPrefix = 2ull << 62;  // its inclusive prefix
@@ -76,12 +86,13 @@ constexpr int kProbeSlots = 1;  // K7b: received slots a thread takes
 // The owner shard of Bloom position (hi, lo), or -1 when the window is
 // invalid or its owner falls outside [0, n); `local` gets the shard-local
 // word (shard_owner_local). Narrow: the word fits int32 and the owner is
-// one division. Wide: the word is 64-bit, the owner is n-1 compares
-// against the shard bounds s * wps, and the local word is the low limb of
-// word - owner * wps, which is exact because the difference is < wps.
+// its quotient by wps, taken as (word * magic) >> shift (route_magic). Wide:
+// the word is 64-bit, the owner is n-1 compares against the shard bounds
+// s * wps, and the local word is the low limb of word - owner * wps, which
+// is exact because the difference is < wps.
 __device__ __forceinline__ int owner_of(u32 hi, u32 lo, bool valid, int n,
-                                        long long wps, int wide,
-                                        u32& local) {
+                                        long long wps, int wide, u32 magic,
+                                        int shift, u32& local) {
   const u32 word_lo = (hi << 27) | (lo >> 5);
   int owner;
   if (wide) {
@@ -91,10 +102,22 @@ __device__ __forceinline__ int owner_of(u32 hi, u32 lo, bool valid, int n,
     local = word_lo - (u32)owner * (u32)wps;
   } else {
     const int w = (int)word_lo;
-    owner = w < 0 ? -1 : w / (int)wps;
+    owner = w < 0 ? -1 : (int)(((u64)word_lo * magic) >> shift);
     local = (u32)(w - owner * (int)wps);
   }
   return (valid && owner >= 0 && owner < n) ? owner : -1;
+}
+
+// (magic, shift) with floor(w / d) == (w * magic) >> shift for every
+// w < 2^31 and 1 <= d < 2^31: shift = 31 + ceil(log2 d), magic =
+// ceil(2^shift / d) < 2^32. Exact because magic * d - 2^shift < d <=
+// 2^(shift - 31) (Granlund and Montgomery, 1994).
+static inline void route_magic(long long d, u32& magic, int& shift) {
+  int l = 0;
+  while ((1ll << l) < d) ++l;
+  shift = 31 + l;
+  magic = (u32)(((1ull << shift) + (unsigned long long)d - 1) /
+                (unsigned long long)d);
 }
 
 __device__ __forceinline__ u64 load_status(const u64* p) {
@@ -124,57 +147,58 @@ __device__ __forceinline__ u64 wait_status(const u64* p, bool prefix) {
   return v;
 }
 
-// Shared memory of a K7a block, in ints: per warp and owner a running
-// count, then its offset among the tile's windows of that owner
-// [kRouteWarps][n]; per owner the tile's count [n] and its first slot
-// [n].
+// Shared memory of a K7a block: the tile's send entries grouped by owner
+// (uint2 [kTile]) and the owner of each (u16 [kTile]), then ints: per warp
+// and owner a running count, then its offset among the tile's windows of
+// that owner [kRouteWarps][n]; per owner the tile's count [n], its first
+// slot [n] and its first entry in the staged group [n].
 static inline size_t route_smem(int n) {
-  return (size_t)(kRouteWarps + 2) * n * sizeof(int);
+  return (size_t)kTile * (sizeof(uint2) + sizeof(unsigned short)) +
+         (size_t)(kRouteWarps + 3) * n * sizeof(int);
 }
 
-// Fill block: the sentinel into [min(total, cap), cap) of every (source,
-// owner) row, in units of kFillChunk slots, a unit's row total read from
-// its source's last tile once that has published it.
-__device__ void route_fill(long long f, long long nfill, int tiles, int n,
-                           long long Pn, long long cap, long long units,
-                           long long chunks, const u64* status,
-                           uint2* send) {
+// A fill block: the sentinel into the slots [from, from + kFillSpan) of
+// row (source s, owner) that lie at or past min(total, cap), the row's
+// total read from the source's last tile once that has published it.
+__device__ void route_fill(long long s, long long row, long long from,
+                           int tiles, int n, long long Pn, long long cap,
+                           const u64* status, uint2* send) {
   __shared__ long long end;
-  for (long long u = f; u < units; u += nfill) {
-    const long long row = u / chunks;  // source * n + owner
-    const long long from = (u % chunks) * kFillChunk;
-    const long long to = min(from + kFillChunk, cap);
-    if (threadIdx.x == 0) {
-      // slots at or past Pn are tail whatever the total
-      end = from >= Pn ? from
-                       : min((long long)(u32)wait_status(
-                                 status + ((row / n) * tiles + tiles - 1) * n +
-                                 row % n,
-                                 true),
-                             cap);
-    }
-    __syncthreads();
-    uint2* dst = send + row * cap;
-    for (long long j = max(from, end) + threadIdx.x; j < to;
-         j += kRouteThreads)
-      dst[j] = make_uint2(0xFFFFFFFFu, 0xFFFFFFFFu);
-    __syncthreads();  // `end` is rewritten by the next unit
+  if (threadIdx.x == 0) {
+    // slots at or past Pn are tail whatever the total
+    end = from >= Pn ? from
+                     : min((long long)(u32)wait_status(
+                               status + (s * tiles + tiles - 1) * n + row % n,
+                               true),
+                           cap);
   }
+  __syncthreads();
+  uint2* dst = send + row * cap;
+  const long long to = min(from + kFillSpan, cap);
+  for (long long j = max(from, end) + threadIdx.x; j < to; j += kRouteThreads)
+    dst[j] = make_uint2(0xFFFFFFFFu, 0xFFFFFFFFu);
 }
 
+// K7a. A block's ticket t names its work: the tiles of source 0, of
+// source 1, then source 0's fill blocks, source 2's tiles, source 1's
+// fill blocks, and so on, source S-1's fill blocks last. A source's fill
+// blocks thus wait on tiles that have mostly finished, and fill while the
+// next source's tiles run.
 __global__ void __launch_bounds__(kRouteThreads) route_kernel(
     const u32* __restrict__ idx_hi, const u32* __restrict__ idx_lo,
-    const uint8_t* __restrict__ win_valid, long long Pn, int n, long long wps,
-    int wide, long long cap, int tiles, long long n_tiles, long long units,
-    long long chunks, unsigned* __restrict__ ticket, u64* __restrict__ status,
+    const uint8_t* __restrict__ win_valid, long long Pn, int n_src, int n,
+    long long wps, int wide, u32 magic, int shift, long long cap, int tiles,
+    long long spans, unsigned* __restrict__ ticket, u64* __restrict__ status,
     uint2* __restrict__ send, int* __restrict__ slot_out,
     int* __restrict__ owner_out, int* __restrict__ overflow) {
-  extern __shared__ int sm[];
-  int* wcnt = sm;                         // [kRouteWarps][n]
-  int* count = wcnt + kRouteWarps * n;    // [n]
-  int* first = count + n;                 // [n]
+  extern __shared__ uint2 stage[];                    // [kTile]
+  unsigned short* stage_owner = (unsigned short*)(stage + kTile);
+  int* wcnt = (int*)(stage_owner + kTile);            // [kRouteWarps][n]
+  int* count = wcnt + kRouteWarps * n;                // [n]
+  int* first = count + n;                             // [n]
+  int* group = first + n;                             // [n]
   __shared__ long long sh_ticket;
-  __shared__ int sh_over;
+  __shared__ int sh_over, sh_scan[33];
   if (threadIdx.x == 0) {
     sh_ticket = atomicAdd(ticket, 1u);
     sh_over = 0;
@@ -182,44 +206,62 @@ __global__ void __launch_bounds__(kRouteThreads) route_kernel(
   for (int j = threadIdx.x; j < kRouteWarps * n; j += kRouteThreads)
     wcnt[j] = 0;
   __syncthreads();
-  const long long t = sh_ticket;
-  if (t >= n_tiles) {
-    route_fill(t - n_tiles, (long long)gridDim.x - n_tiles, tiles, n, Pn,
-               cap, units, chunks, status, send);
-    return;
+  long long s = 0;
+  int c = (int)sh_ticket;
+  if (sh_ticket >= tiles) {
+    const long long fills = n * spans;  // a source's fill blocks
+    const long long u = sh_ticket - tiles;
+    const long long g = u / (tiles + fills), r = u % (tiles + fills);
+    if (g < n_src - 1 && r < tiles) {
+      s = g + 1;
+      c = (int)r;
+    } else {
+      const long long f = g < n_src - 1 ? r - tiles : r;
+      route_fill(g, g * n + f / spans, (f % spans) * kFillSpan, tiles, n,
+                 Pn, cap, status, send);
+      return;
+    }
   }
-  const long long s = t / tiles;
-  const int c = (int)(t % tiles);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // every window of the lane loaded before the first is used
+  // key: owner + 1 (0 where none) in bits 0-10, the bit in 11-15, the
+  // window's rank among the warp's windows of its owner (under kWarpTile)
+  // from bit 16; local: the shard-local word. The loads of half the
+  // windows are issued before the first is used.
   const long long p0 = (long long)c * kTile + warp * kWarpTile + lane;
   const long long i0 = s * Pn + p0;
-  u32 hi[kRounds], lo[kRounds];
-  uint8_t va[kRounds];
-#pragma unroll
-  for (int k = 0; k < kRounds; ++k) {
-    const bool in = p0 + k * 32 < Pn;
-    hi[k] = in ? idx_hi[i0 + k * 32] : 0u;
-    lo[k] = in ? idx_lo[i0 + k * 32] : 0u;
-    va[k] = in ? win_valid[i0 + k * 32] : (uint8_t)0;
-  }
-  // rank: the window's rank among the warp's windows of its owner (under
-  // kWarpTile) in the low 16 bits, its bit above
-  int own[kRounds], rank[kRounds];
+  int key[kRounds];
   u32 local[kRounds];
+#pragma unroll
+  for (int h = 0; h < kRounds; h += kHalf) {
+    u32 hi[kHalf], lo[kHalf];
+    uint8_t va[kHalf];
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) {
+      const long long i = i0 + (h + k) * 32;
+      const bool in = p0 + (h + k) * 32 < Pn;
+      hi[k] = in ? idx_hi[i] : 0u;
+      lo[k] = in ? idx_lo[i] : 0u;
+      va[k] = in ? win_valid[i] : (uint8_t)0;
+    }
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) {
+      const int o = owner_of(hi[k], lo[k], va[k] != 0, n, wps, wide, magic,
+                             shift, local[h + k]);
+      key[h + k] = (o + 1) | (int)((lo[k] & 31u) << 11);
+    }
+  }
   int* wc = wcnt + warp * n;
 #pragma unroll
   for (int k = 0; k < kRounds; ++k) {
-    own[k] = owner_of(hi[k], lo[k], va[k] != 0, n, wps, wide, local[k]);
     // lanes with the same owner, and this lane's rank among the lower ones
-    const unsigned peers = __match_any_sync(0xffffffffu, own[k]);
+    const int o = (key[k] & 0x7FF) - 1;
+    const unsigned peers = __match_any_sync(0xffffffffu, o);
     const int below = __popc(peers & ((1u << lane) - 1u));
-    rank[k] = (own[k] >= 0 ? wc[own[k]] + below : 0) |
-              (int)((lo[k] & 31u) << 16);
+    if (o >= 0) key[k] |= (wc[o] + below) << 16;
     __syncwarp();
-    if (own[k] >= 0 && below == 0) wc[own[k]] += __popc(peers);
+    if (o >= 0 && below == 0) wc[o] += __popc(peers);
     __syncwarp();
   }
   __syncthreads();
@@ -236,6 +278,15 @@ __global__ void __launch_bounds__(kRouteThreads) route_kernel(
     store_status(st + o, (c == 0 ? kFlagPrefix : kFlagCount) | (u32)run);
   }
   __syncthreads();
+  // each owner's first entry in the tile's entries grouped by owner
+  int routed = 0;
+  for (int o0 = 0; o0 < n; o0 += kRouteThreads) {
+    const int o = o0 + threadIdx.x;
+    int total;
+    const int x = block_exclusive_scan(o < n ? count[o] : 0, sh_scan, total);
+    if (o < n) group[o] = routed + x;
+    routed += total;
+  }
   // look-back: a warp per owner sums the counts of up to 32 earlier tiles
   // of the source at a time (lane l the tile l + 1 back), down to the
   // nearest that carries its inclusive prefix
@@ -272,24 +323,29 @@ __global__ void __launch_bounds__(kRouteThreads) route_kernel(
     __syncthreads();
     if (threadIdx.x == 0) overflow[s] = sh_over;
   }
-  // slots: a warp's windows of one owner take consecutive slots, so its
-  // stores of that owner form one run
-  uint2* dst = send + s * n * cap;
+  // slot and owner per window; the send entries staged by owner
 #pragma unroll
   for (int k = 0; k < kRounds; ++k) {
     if (p0 + k * 32 >= Pn) break;
-    const int o = own[k];
+    const int o = (key[k] & 0x7FF) - 1;
     int sl = -1;
     if (o >= 0) {
-      const long long slot =
-          (long long)first[o] + wc[o] + (rank[k] & 0xFFFF);
-      if (slot < cap) {
-        sl = (int)slot;
-        dst[o * cap + slot] = make_uint2(local[k], (u32)rank[k] >> 16);
-      }
+      const int r = wc[o] + (key[k] >> 16);  // rank among the tile's
+      const long long slot = (long long)first[o] + r;
+      if (slot < cap) sl = (int)slot;
+      stage[group[o] + r] = make_uint2(local[k], (u32)(key[k] >> 11) & 31u);
+      stage_owner[group[o] + r] = (unsigned short)o;
     }
     slot_out[i0 + k * 32] = sl;
     owner_out[i0 + k * 32] = o;
+  }
+  __syncthreads();
+  // the staged entries, each owner's in one run of consecutive slots
+  uint2* dst = send + s * n * cap;
+  for (int j = threadIdx.x; j < routed; j += kRouteThreads) {
+    const int o = stage_owner[j];
+    const long long slot = (long long)first[o] + (j - group[o]);
+    if (slot < cap) dst[o * cap + slot] = stage[j];
   }
 }
 
@@ -411,13 +467,16 @@ extern "C" int shkk_shard_route(const void* idx_hi, const void* idx_lo,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long n_tiles = (long long)n_src * tiles;
-  const long long chunks = (cap + kFillChunk - 1) / kFillChunk;
-  const long long units = (long long)n_src * n * chunks;
-  const long long nfill = min(units, (long long)kMaxFillBlocks);
-  route_kernel<<<(unsigned)(n_tiles + nfill), kRouteThreads, smem, st>>>(
+  // a fill block per kFillSpan slots of each (source, owner) row
+  const long long spans = (cap + kFillSpan - 1) / kFillSpan;
+  u32 magic = 0;
+  int shift = 0;
+  if (!wide) route_magic(wps, magic, shift);
+  route_kernel<<<(unsigned)(n_src * (tiles + n * spans)), kRouteThreads,
+                 smem, st>>>(
       (const u32*)idx_hi, (const u32*)idx_lo, (const uint8_t*)win_valid, Pn,
-      n, wps, wide, cap, tiles, n_tiles, units, chunks, (unsigned*)scratch,
+      n_src, n, wps, wide, magic, shift, cap, tiles, spans,
+      (unsigned*)scratch,
       (u64*)scratch + 1, (uint2*)send, (int*)slot, (int*)owner,
       (int*)overflow);
   return (int)cudaGetLastError();

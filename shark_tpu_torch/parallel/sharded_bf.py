@@ -62,7 +62,8 @@ from shark_tpu_torch.index.structure import SharkIndex
 from shark_tpu_torch.parallel.mesh import make_devices
 
 MISS_SENTINEL = 0xFFFFFFFF
-# Shards a routing launch takes: its shared memory holds 10 ints per shard
+# Shards a routing launch takes: its shared memory holds 11 ints per shard
+# beside a tile's 40 KB of staged entries
 MAX_SHARDS = 1024
 _U32 = 0xFFFFFFFF
 

@@ -22,7 +22,8 @@ shards, narrow and wide, with and without overflow (and reprobe from
 another thread on another stream), the router at its edges (one window,
 under one tile, one tile, a count no multiple of the tile, n in {1, 2, 8,
 64, 1024}, every window owned by one shard, an all-tail cap, a cap of 8,
-every window invalid, wide) and 50 repeated calls giving the same bytes,
+every window invalid, wide, words at every shard boundary for divisors
+of every size) and 50 repeated calls giving the same bytes,
 the owner probe on hand-made slots (an owner that received nothing,
 ranks past the pay rows), the classic probe with a pay row 0 whose
 second word is not 0 (the payload of every miss), whole
@@ -1081,6 +1082,32 @@ def test_shard_route_shard_counts(cuda, n):
     hi, lo, valid, wps = route_windows(cuda, S, b, Ls, n, "random", n)
     check_route(hi, lo, valid, n=n, wps=wps, wide=False,
                 cap=max(8, b * Ls // n))
+
+
+@pytest.mark.parametrize("n,wps", [(8, 1), (8, 7), (8, (1 << 20) + 3),
+                                   (8, 1 << 25), (8, (1 << 28) - 1),
+                                   (1, (1 << 31) - 1), (3, 715827882)])
+def test_shard_route_narrow_boundaries(cuda, n, wps):
+    """K7a == its plain version on words at every shard boundary +-1 and
+    at random, for divisors wps of every size the narrow (31-bit) word
+    takes, and owners equal word // wps: the kernel divides by multiplying
+    and shifting."""
+    rng = np.random.default_rng(wps % 1000)
+    edges = [s * wps + d for s in range(1, n + 1) for d in (-2, -1, 0, 1)]
+    words = np.concatenate([
+        np.asarray([w for w in edges if 0 <= w < n * wps], np.int64),
+        rng.integers(0, n * wps, size=40000, dtype=np.int64),
+        [0, n * wps - 1]])
+    words = words[:words.size // 88 * 88]
+    addr = words.astype(np.uint64) * np.uint64(32) + np.uint64(5)
+    hi = torch.from_numpy((addr >> np.uint64(32)).astype(np.uint32)).to(cuda)
+    lo = torch.from_numpy((addr & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    shp = (1, words.size // 88, 88)
+    valid = torch.ones(shp, dtype=torch.bool, device=cuda)
+    _, _, owner, _ = check_route(hi.view(shp), lo.to(cuda).view(shp), valid,
+                                 n=n, wps=wps, wide=False, cap=words.size)
+    np.testing.assert_array_equal(owner.cpu().numpy().reshape(-1),
+                                  words // wps)
 
 
 def test_shard_route_repeated_calls(cuda):
