@@ -62,7 +62,11 @@ Phases, each printing its lines; any failure exits non-zero:
    give event ms, device ms and back-to-back ms (20 launches between two
    events, L2 warm). The library forms of the owner probe and the return
    compute their whole function (indices, every slot or window, zeros on
-   a miss);
+   a miss). The return reads the owner probe's replies in place (a
+   transposed view, as the classifier passes them on one card) and is
+   held equal on their contiguous copy too; its row gives that copy's
+   event and device time (exchange_back_ms, exchange_back_device_ms),
+   the copy the one-card path no longer makes;
 4. end to end through the CLI entry point (shark_tpu_torch.cli.main, what
    `python -m shark_tpu_torch` runs) with the default flags
    -k 17 -c 0.6 -b 1, on workloads made with numpy from a seed at
@@ -90,7 +94,10 @@ Phases, each printing its lines; any failure exits non-zero:
    kernel against its plain version on the same inputs at that size, and
    against its library form (table[idx] rows; the gather+match of the
    hashed probe), exact, with kernel, plain and library times and the
-   bound. No classify run (a)-(g) may launch these two kernels.
+   bound; P2 also with its device time (L2 warm), its event time with
+   the L2 warm (warm_ms), its bound in 64-byte sectors and its warm bound
+   (the streams alone, the table in L2). No classify run (a)-(g) may
+   launch these two kernels.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
@@ -1269,22 +1276,27 @@ def route_rows(windows, dix, n, wps, wide, cap, timer, gathers=None):
         rows["shard_probe"]["sector_bound_ms"] = fl["sector_bound_ms"]
 
     # K7c ------------------------------------------------------------------
-    back = _transposed(k7b)
+    # the replies in place, as the classifier passes them on one card; the
+    # contiguous copy it used to make is timed beside (exchange_back_ms)
+    back = k7b.transpose(0, 1)
     k7c = sb.shard_return(back, owner, slot)
     ec = same("shard_return", k7c, sb.shard_return_plain(back, owner, slot))
+    same("shard_return on the contiguous replies",
+         sb.shard_return(_transposed(k7b), owner, slot), k7c)
     ok = slot >= 0
     src = torch.arange(S, device=dev, dtype=torch.int32).view(S, 1, 1)
-    backr = back.view(torch.int32).reshape(-1, 2)
+    replyr = k7b.view(torch.int32).reshape(-1, 2)
     n_routed = int(ok.sum())
 
     def return_library():
-        """K7c's gather in PyTorch, over every window: the flat reply
-        index from (owner, slot), the reply row, zeros where the window
-        has no slot (K7c also decodes the pay words)."""
+        """K7c's gather in PyTorch, over every window: the flat index of
+        its reply in K7b's [owner, source] replies from (owner, slot),
+        the reply row, zeros where the window has no slot (K7c also
+        decodes the pay words)."""
         has = slot >= 0
-        flat = (src * n + torch.where(has, owner, 0)) * cap \
+        flat = (torch.where(has, owner, 0) * S + src) * cap \
             + torch.where(has, slot, 0)
-        return torch.where(has[..., None], backr[flat.long()], 0)
+        return torch.where(has[..., None], replyr[flat.long()], 0)
 
     rows["shard_return"] = dict(
         err=ec,
@@ -1292,6 +1304,9 @@ def route_rows(windows, dix, n, wps, wide, cap, timer, gathers=None):
         plain_ms=timer(lambda: sb.shard_return_plain(back, owner, slot)),
         library_ms=timer(return_library),
         bound=bound(nw * 8 + n_routed * 8 + nw * 8, nw * 6),
+        exchange_back_ms=timer(lambda: _transposed(k7b)),
+        exchange_back_device_ms=device_profile(
+            lambda: _transposed(k7b))["device_ms"],
         **device_fields(lambda: sb.shard_return(back, owner, slot)),
     )
     stats = dict(windows=nw, routed=n_routed, cap=cap,
@@ -1491,18 +1506,28 @@ def check_experiments(timer, launches):
     warm_ms = timer(lambda: R.resident_match(rows, want, t128), flush=False)
     gm_ms = timer(lambda: R.match_gather(table, bucket, rest, valid))
     sel_ms = timer(lambda: torch.index_select(tbl, 0, b64))
+    lines64 = int(torch.unique(b64[valid] >> 1).numel())
     r = record["resident_match"] = dict(
         err=err,
         ms=timer(lambda: R.resident_match(rows, want, t128)),
         plain_ms=timer(lambda: R.resident_match_plain(rows, want, t128)),
         library_ms=timer(lambda: tbl[b64]),
+        # flushed: the table's buckets from device memory; also in the
+        # 64-byte sectors the L2 may fetch; warm: the streams alone
         bound=bound(n * 16 + touched * 32, n_valid * (4 * 8 + 10)),
+        sector_bound_ms=(n * 16 + lines64 * 64) / PEAK_BYTES_S * 1e3,
+        warm_bound_ms=n * 16 / PEAK_BYTES_S * 1e3,
+        warm_ms=warm_ms,
+        **device_fields(lambda: R.resident_match(rows, want, t128)),
     )
     say_row("resident_match", r, f"n={n} lgB={R.LGB}")
     say(f"experiment resident_match: {n_valid} valid probes, {hits} hits, "
-        f"{touched} buckets of {table.shape[0]}; L2 flushed "
-        f"{r['ms']:.4f} ms ({n / r['ms'] / 1e3:.1f} M probes/s), L2 warm "
-        f"{warm_ms:.4f} ms ({n / warm_ms / 1e3:.1f} M probes/s); "
+        f"{touched} buckets of {table.shape[0]} ({lines64} 64-byte lines); "
+        f"L2 flushed {r['ms']:.4f} ms ({n / r['ms'] / 1e3:.1f} M "
+        f"probes/s), L2 warm {warm_ms:.4f} ms "
+        f"({n / warm_ms / 1e3:.1f} M probes/s); bounds: flushed "
+        f"{r['bound'][0]:.4f}, in 64-byte sectors "
+        f"{r['sector_bound_ms']:.4f}, warm {r['warm_bound_ms']:.4f} ms; "
         f"match_gather {gm_ms:.4f} ms; the bucket rows by index_select "
         f"{sel_ms:.4f} ms")
     del table, bucket, rest, valid, rows, want, t128, b64, tbl
@@ -1947,7 +1972,9 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         }
-        for key in ("device_ms", "device_ms_suspect", "sector_bound_ms"):
+        for key in ("device_ms", "device_ms_suspect", "sector_bound_ms",
+                    "warm_bound_ms", "warm_ms", "exchange_back_ms",
+                    "exchange_back_device_ms"):
             if key in r:
                 row[key] = r[key]
         if name == "shard_route" and r.get("device_ops"):

@@ -234,13 +234,13 @@ def time_probe(built):
     }
     say_runs(alternate(calls, runs))
     print("  device ms (torch.profiler), stash: " + "  ".join(
-        f"{name} {cs.device_ms(runs['stash'](c)):.4f}"
+        f"{name} {cs.device_profile(runs['stash'](c))['device_ms']:.4f}"
         for name, c in calls.items()), flush=True)
 
     def p2():
         return R.resident_match(rows, wantp, t128)
     print(f"  resident_match (P2) on the same buckets: back-to-back "
-          f"{cs.back_to_back_ms(p2):.4f}, device {cs.device_ms(p2):.4f}",
+          f"{cs.back_to_back_ms(p2):.4f}, device {cs.device_profile(p2)['device_ms']:.4f}",
           flush=True)
 
 

@@ -25,7 +25,9 @@ the table's first 32 MB or 256 MB, the whole table, no side table; the
 masked runs are wrong and timing only) beside the bare 16-byte gather at
 the same buckets; K5 on that index's classic tables, and K7a-c on that
 index split into 8 shards on the card (K7b on the slots the owners
-receive from K7a, K7c on the replies), at 8192 x 104 and 65536 x 104.
+receive from K7a, K7c on the replies, in place where CHECKOUT's return
+takes strides, and the exchange back's contiguous copy of the replies
+that the one-card path made before), at 8192 x 104 and 65536 x 104.
 """
 
 import argparse
@@ -217,7 +219,10 @@ def time_sharded(cs, genes, xclf, timer):
         probe = functools.partial(sb.shard_probe, *args)
         reply = probe()
         cs.same("shard_probe", [reply], [sb.shard_probe_plain(*args)])
-        back = cs._transposed(reply)
+        # the replies in place where CHECKOUT's return takes strides (as
+        # its classifier passes them on one card), else their copy
+        in_place = hasattr(sb, "_check_back")
+        back = reply.transpose(0, 1) if in_place else cs._transposed(reply)
         ret = functools.partial(sb.shard_return, back, owner, slot)
         cs.same("shard_return", ret(), sb.shard_return_plain(back, owner,
                                                              slot))
@@ -225,7 +230,10 @@ def time_sharded(cs, genes, xclf, timer):
         report(cs, f"{where} shard_route ({n} shards, cap {kw['cap']})",
                route, timer)
         report(cs, f"{where} shard_probe ({n} shards)", probe, timer)
-        report(cs, f"{where} shard_return ({n} shards)", ret, timer)
+        report(cs, f"{where} shard_return ({n} shards, replies "
+               f"{'in place' if in_place else 'copied'})", ret, timer)
+        report(cs, f"{where} exchange back (the replies' contiguous copy)",
+               functools.partial(cs._transposed, reply), timer)
 
 
 def main() -> int:

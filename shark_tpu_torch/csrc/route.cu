@@ -8,9 +8,10 @@
 // the halves of _route_probe_return (:181) around its two all_to_all
 // exchanges: the sort, slot and pack (:195-237), the owner's probe
 // (:245-250, step.py probe_rank and take_rows) and the scatter back with
-// decode_pay_words (:256-263). The exchanges are no kernel: the wrapper
-// transposes the stacked buffer when the shards share a card and copies
-// between cards otherwise.
+// decode_pay_words (:256-263). The exchanges are no kernel: when the
+// shards share a card the wrapper transposes the stacked send buffer for
+// K7b, and K7c reads K7b's replies in place through strides; between
+// cards it copies.
 //
 // Every kernel takes a leading shard axis, so one launch covers all the
 // shards that live on one card. Layouts (s = a source shard on this card,
@@ -19,7 +20,8 @@
 //   send      uint2 [n_src, n, cap]: (local word, bit), 0xFFFFFFFF in both
 //             lanes where no window took the slot
 //   recv      uint2 [n_h, n_src_all, cap]; reply the same shape
-//   back      uint2 [n_src, n, cap]
+//   back      uint2 [n_src, n, cap] with any source and owner strides
+//             (one card: reply transposed, a view)
 //
 // K7a's slot order is shark_tpu's: it sorts the keys owner * Pn + flat
 // position, so within an owner the slots follow the window's position and
@@ -59,10 +61,9 @@
 // look-back takes about a tenth of the kernel, the send and the slot and
 // owner stores each about a seventh. K7b
 // reads one 8-byte (word, rank) row per routed window and one 8-byte pay
-// row per hit, two dependent random loads; K7c reads 8 bytes of owner and
-// slot and one 8-byte reply per routed window and writes 8. Those two are
-// one thread per window or slot; their random loads cost a 32-byte sector
-// each.
+// row per hit, two dependent random loads, a thread a slot, each random
+// load a 32-byte sector; K7c reads 8 bytes of owner and slot and one
+// 8-byte reply per routed window and writes 8, four windows a thread.
 #include "common.cuh"
 
 namespace {
@@ -82,6 +83,12 @@ constexpr int kProbeSlots = 1;  // K7b: received slots a thread takes
 // K7b's table loads; ld.global.nc.L1::no_allocate.v2.u32 is the read-only
 // path without L1 allocation
 #define SHKK_PROBE_LOAD "ld.global.v2.u32"
+constexpr int kReturnChunks = 1;  // K7c: chunks of 4 windows a thread
+// K7c's reply loads (ld.global.nc.L1::no_allocate.v2.u32: the read-only
+// path without L1 allocation)
+#define SHKK_RETURN_LOAD "ld.global.v2.u32"
+// 1: K7c loads slot and owner in the streaming (evict-first) form
+#define SHKK_RETURN_STREAM 0
 
 // The owner shard of Bloom position (hi, lo), or -1 when the window is
 // invalid or its owner falls outside [0, n); `local` gets the shard-local
@@ -406,27 +413,122 @@ __global__ void __launch_bounds__(kThreads) shard_probe_kernel(
   }
 }
 
-// K7c: one thread per window of source s: its reply where K7a gave it a
-// slot, else zeros (a miss), then decode_pay_words.
-__global__ void shard_return_kernel(const uint2* __restrict__ back,
-                                    long long Pn, long long total, int n,
-                                    long long cap,
-                                    const int* __restrict__ owner,
-                                    const int* __restrict__ slot,
-                                    u32* __restrict__ tagv,
-                                    u32* __restrict__ payv) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int sl = slot[i];
-  u32 w0 = 0u, w1 = 0u;
-  if (sl >= 0) {
-    const uint2 pw = back[((i / Pn) * n + owner[i]) * cap + sl];
-    w0 = pw.x;
-    w1 = pw.y;
+// K7c: the reply to each window, decoded. A block row per source s
+// (blockIdx.y), so a window's source comes from the grid and every index
+// within a source is 32-bit: no division. Each thread takes kReturnChunks
+// chunks of 4 consecutive windows, kThreads * 4 windows apart: one
+// 16-byte load of their slots and one of their owners, the reply of each
+// window that has a slot (every reply load of a thread issued before the
+// first decode), one 16-byte store of the tags and one of the payloads.
+// A source's row of windows need not start on a 16-byte boundary (Pn =
+// b * Ls is odd for odd b and Ls): its up to 3 windows before the first
+// boundary and up to 3 after its last chunk are taken one at a time by
+// threads of its first block. The replies are read where K7b wrote them:
+// back may be any [S, n, cap, 2] view whose last two strides are (2, 1),
+// such as K7b's [owner, source] replies transposed, so the exchange back
+// on one card is no copy; the source and owner strides (in 8-byte rows)
+// come from the wrapper.
+//
+// Bound: bytes. Per window 8 bytes of slot and owner in and 8 of tag and
+// payload out, and 8 bytes of reply per routed window. A warp's 128
+// windows hold runs of consecutive slots of each owner (K7a gives an
+// owner's slots in window order), so the reply loads of a warp fall on
+// few sectors.
+__device__ __forceinline__ uint2 load_reply(const uint2* p) {
+  uint2 v;
+  asm volatile(SHKK_RETURN_LOAD " {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+
+// decode_pay_words of a reply (zeros: tag 0, payload 0, a miss)
+__device__ __forceinline__ void decode_reply(uint2 pw, u32& tag, u32& pay) {
+  tag = pw.x >> 30;
+  pay = tag == 3u ? pw.y : ((pw.x & 0xFFFFu) | ((pw.y & 0xFFFFu) << 16));
+}
+
+__device__ __forceinline__ uint2 reply_of(const uint2* bk, u32 owner_stride,
+                                          int o, int sl) {
+  return sl >= 0 ? load_reply(bk + (u64)(u32)o * owner_stride + (u32)sl)
+                 : make_uint2(0u, 0u);
+}
+
+__global__ void __launch_bounds__(kThreads) shard_return_kernel(
+    const uint2* __restrict__ back, long long src_stride, u32 owner_stride,
+    u32 Pn, const int* __restrict__ owner, const int* __restrict__ slot,
+    u32* __restrict__ tagv, u32* __restrict__ payv) {
+  const u32 s = blockIdx.y;
+  const size_t r0 = (size_t)s * Pn;
+  const int* sl_s = slot + r0;
+  const int* ow_s = owner + r0;
+  u32* tg_s = tagv + r0;
+  u32* py_s = payv + r0;
+  const uint2* bk = back + (long long)s * src_stride;
+  // the bases are 16-byte aligned, so window r0 + head is on a boundary
+  const u32 head = min((0u - s * Pn) & 3u, Pn);
+  const u32 chunks = (Pn - head) >> 2;
+  // the payload plane starts S * Pn words after the tags: aligned alike
+  // only when S * Pn % 4 == 0
+  const bool pay16 = (reinterpret_cast<uintptr_t>(py_s + head) & 15u) == 0;
+  const u32 t0 = blockIdx.x * (u32)(kThreads * kReturnChunks) + threadIdx.x;
+  int4 sl[kReturnChunks], ow[kReturnChunks];
+#pragma unroll
+  for (int c = 0; c < kReturnChunks; ++c) {
+    const u32 t = t0 + (u32)(c * kThreads);
+    if (t < chunks) {
+#if SHKK_RETURN_STREAM
+      sl[c] = __ldcs(reinterpret_cast<const int4*>(sl_s + head + 4 * t));
+      ow[c] = __ldcs(reinterpret_cast<const int4*>(ow_s + head + 4 * t));
+#else
+      sl[c] = *reinterpret_cast<const int4*>(sl_s + head + 4 * t);
+      ow[c] = *reinterpret_cast<const int4*>(ow_s + head + 4 * t);
+#endif
+    } else {
+      sl[c] = make_int4(-1, -1, -1, -1);
+      ow[c] = sl[c];
+    }
   }
-  const u32 tag = w0 >> 30;
-  tagv[i] = tag;
-  payv[i] = tag == 3u ? w1 : ((w0 & 0xFFFFu) | ((w1 & 0xFFFFu) << 16));
+  uint2 pw[kReturnChunks][4];
+#pragma unroll
+  for (int c = 0; c < kReturnChunks; ++c) {
+    pw[c][0] = reply_of(bk, owner_stride, ow[c].x, sl[c].x);
+    pw[c][1] = reply_of(bk, owner_stride, ow[c].y, sl[c].y);
+    pw[c][2] = reply_of(bk, owner_stride, ow[c].z, sl[c].z);
+    pw[c][3] = reply_of(bk, owner_stride, ow[c].w, sl[c].w);
+  }
+#pragma unroll
+  for (int c = 0; c < kReturnChunks; ++c) {
+    const u32 t = t0 + (u32)(c * kThreads);
+    if (t >= chunks) continue;
+    uint4 tg, py;
+    decode_reply(pw[c][0], tg.x, py.x);
+    decode_reply(pw[c][1], tg.y, py.y);
+    decode_reply(pw[c][2], tg.z, py.z);
+    decode_reply(pw[c][3], tg.w, py.w);
+    const u32 j = head + 4 * t;
+    *reinterpret_cast<uint4*>(tg_s + j) = tg;
+    if (pay16) {
+      *reinterpret_cast<uint4*>(py_s + j) = py;
+    } else {
+      py_s[j] = py.x;
+      py_s[j + 1] = py.y;
+      py_s[j + 2] = py.z;
+      py_s[j + 3] = py.w;
+    }
+  }
+  // the windows before the first boundary (threads 0-2) and after the
+  // last chunk (threads 4-6) of the source's first block
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const u32 tail = head + 4 * chunks;
+    const u32 j = threadIdx.x < 4 ? threadIdx.x : tail + threadIdx.x - 4;
+    if ((threadIdx.x < 4 && j < head) || (threadIdx.x >= 4 && j < Pn)) {
+      u32 tag, pay;
+      decode_reply(reply_of(bk, owner_stride, ow_s[j], sl_s[j]), tag, pay);
+      tg_s[j] = tag;
+      py_s[j] = pay;
+    }
+  }
 }
 
 }  // namespace
@@ -499,15 +601,24 @@ extern "C" int shkk_shard_probe(const void* recv, int n_owners,
   return (int)cudaGetLastError();
 }
 
-extern "C" int shkk_shard_return(const void* back, long long Pn,
-                                 long long total, int n, long long cap,
-                                 const void* owner, const void* slot,
-                                 void* tagv, void* payv, void* stream) {
-  if (total > 0) {
-    shard_return_kernel<<<grid_for(total, kThreads), kThreads, 0,
+extern "C" int shkk_shard_return(const void* back, long long src_stride,
+                                 long long owner_stride, int n_src,
+                                 long long Pn, const void* owner,
+                                 const void* slot, void* out, void* stream) {
+  if (n_src < 0 || n_src > 65535 || Pn < 0 || Pn > 0x7FFFFFFFll ||
+      owner_stride < 0 || owner_stride > 0xFFFFFFFFll)
+    return (int)cudaErrorInvalidValue;
+  if (n_src > 0 && Pn > 0) {
+    // a block for every kThreads * kReturnChunks chunks of 4, and at least
+    // one for a source of fewer than 4 windows
+    const unsigned gx =
+        grid_for(Pn / 4 + 1, kThreads * kReturnChunks);
+    u32* tagv = (u32*)out;
+    shard_return_kernel<<<dim3(gx, n_src), kThreads, 0,
                           (cudaStream_t)stream>>>(
-        (const uint2*)back, Pn, total, n, cap, (const int*)owner,
-        (const int*)slot, (u32*)tagv, (u32*)payv);
+        (const uint2*)back, src_stride, (u32)owner_stride, (u32)Pn,
+        (const int*)owner, (const int*)slot, tagv,
+        tagv + (size_t)n_src * Pn);
   }
   return (int)cudaGetLastError();
 }

@@ -205,8 +205,9 @@ _SIGNATURES = {
                          _VP, _VP, _VP, _VP],
     # recv, n_owners, per_owner, bf_rank, wps, pay, rows_max, reply, stream
     "shkk_shard_probe": [_VP, _I, _L, _VP, _L, _VP, _L, _VP, _VP],
-    # back, Pn, total, n, cap, owner, slot, tagv, payv, stream
-    "shkk_shard_return": [_VP, _L, _L, _I, _L, _VP, _VP, _VP, _VP, _VP],
+    # back, src_stride, owner_stride (8-byte rows), n_src, Pn, owner, slot,
+    # out (tagv then payv), stream
+    "shkk_shard_return": [_VP, _L, _L, _I, _L, _VP, _VP, _VP, _VP],
     # table_tiles, idx, n, out, stream
     "shkk_gather_tiles": [_VP, _VP, _L, _VP, _VP],
     # rows, want, table128, n, out, stream
@@ -262,3 +263,10 @@ def require(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its data starts on a 16-byte boundary (every
+    allocation does), else a copy that does: the kernels that load 16
+    bytes a thread take their inputs so."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

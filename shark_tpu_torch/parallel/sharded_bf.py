@@ -22,7 +22,8 @@ drives them from one process over an explicit list of torch.device, one
 per shard, which may name one device more than once: shards that share a
 device are stacked on a leading axis and each kernel covers all of them
 in one launch, and the exchange between them is a transpose of the
-stacked [n_src, n_dst, cap, 2] buffer; between devices it is copies.
+stacked [n_src, n_dst, cap, 2] buffer (a copy for K7b, a view that K7c
+reads in place on the way back); between devices it is copies.
 
 The capacity per (source, owner) pair defaults to shark_tpu's adaptive
 binomial-tail bound (mean + 8 sigma + 64); a batch that overflows anyway
@@ -287,6 +288,25 @@ def shard_probe(recv, bf_rank, pay):
 # ---------------------------------------------------------------------------
 
 
+def _check_back(back, owner, slot):
+    """What K7c takes: back u32 [S, n, cap, 2] with its last two strides
+    (2, 1) and its 8-byte rows aligned (any source and owner strides, such
+    as K7b's [owner, source] replies transposed), owner and slot [S, b,
+    Ls]."""
+    if back.dim() != 4 or back.shape[3] != 2:
+        raise ValueError(f"shard_return: back {tuple(back.shape)}, expected "
+                         "[S, n, cap, 2]")
+    if back.stride(3) != 1 or back.stride(2) != 2:
+        raise ValueError(f"shard_return: back strides {back.stride()}: the "
+                         "last two must be (2, 1)")
+    if (back.stride(0) % 2 or back.stride(1) % 2
+            or back.storage_offset() % 2):
+        raise ValueError("shard_return: back's 8-byte rows are not aligned")
+    if owner.shape != slot.shape or slot.dim() != 3 \
+            or slot.shape[0] != back.shape[0]:
+        raise ValueError("shard_return: inconsistent shapes")
+
+
 def shard_return_plain(back, owner, slot):
     """Plain version of K7c (shark_tpu :256-263 scatters the replies to
     their windows; here each window gathers its own): (tagv, payv)
@@ -304,27 +324,29 @@ def shard_return_plain(back, owner, slot):
 
 def shard_return(back, owner, slot):
     """K7c: the replies that came back to S source shards (u32[S, n, cap,
-    2]) and K7a's owner and slot per window -> (tagv, payv u32[S, b,
-    Ls]). CUDA tensors run csrc/route.cu; CPU tensors the plain
-    version."""
+    2], read in place: any view whose last two strides are (2, 1)) and
+    K7a's owner and slot per window -> (tagv, payv u32[S, b, Ls]), two
+    halves of one allocation on the card. CUDA tensors run csrc/route.cu;
+    CPU tensors the plain version."""
+    _check_back(back, owner, slot)
     if not back.is_cuda:
         return shard_return_plain(back, owner, slot)
     dev = back.device
-    kernels.require(back, "back", torch.uint32, 4, dev)
+    if back.dtype != torch.uint32:
+        raise TypeError(f"shard_return: back has dtype {back.dtype}, "
+                        "expected torch.uint32")
     kernels.require(owner, "owner", torch.int32, 3, dev)
     kernels.require(slot, "slot", torch.int32, 3, dev)
-    S, n, cap, two = back.shape
-    if two != 2 or owner.shape != slot.shape or slot.shape[0] != S:
-        raise ValueError("shard_return: inconsistent shapes")
-    tagv = torch.empty(slot.shape, dtype=torch.uint32, device=dev)
-    payv = torch.empty_like(tagv)
-    Pn = slot.shape[1] * slot.shape[2]
+    owner, slot = kernels.aligned16(owner), kernels.aligned16(slot)
+    S, b, Ls = slot.shape
+    out = torch.empty((2, S, b, Ls), dtype=torch.uint32, device=dev)
     rc = kernels.lib().shkk_shard_return(
-        back.data_ptr(), Pn, S * Pn, n, cap, owner.data_ptr(),
-        slot.data_ptr(), tagv.data_ptr(), payv.data_ptr(),
+        back.data_ptr(), back.stride(0) // 2, back.stride(1) // 2, S, b * Ls,
+        owner.data_ptr(), slot.data_ptr(), out.data_ptr(),
         kernels.stream(dev))
     kernels.check(rc, "shard_return")
     kernels.LAUNCHES.add("shard_return")
+    tagv, payv = out
     return tagv, payv
 
 
@@ -487,13 +509,15 @@ class ShardedBFClassifier:
         packed = torch.as_tensor(packed)
         return self._run(packed, torch.as_tensor(vmask), packed.shape[1] * 4)
 
-    def _exchange(self, bufs, cap: int):
+    def _exchange(self, bufs, cap: int, copy: bool = True):
         """all_to_all: bufs[g] u32[n_g, n, cap, 2] holds what the shards of
         group g send to every shard; returns per group h u32[n_h, n, cap,
-        2], what every shard sent to h's shards."""
+        2], what every shard sent to h's shards. On one device that is the
+        transpose of bufs[0]: made contiguous when `copy`, else a view
+        (K7c reads the replies in place)."""
         if len(self._groups) == 1:
-            return [bufs[0].view(torch.int32).transpose(0, 1).contiguous()
-                    .view(torch.uint32)]
+            view = bufs[0].view(torch.int32).transpose(0, 1)
+            return [(view.contiguous() if copy else view).view(torch.uint32)]
         out = []
         for dh, ids_h in self._groups:
             recv = torch.empty((len(ids_h), self.n, cap, 2),
@@ -544,7 +568,7 @@ class ShardedBFClassifier:
             shard_probe(recv, self.dix[d].bf_rank, self.dix[d].pay)
             for recv, (d, _) in zip(recvs, self._groups)
         ]
-        backs = self._exchange(replies, cap)
+        backs = self._exchange(replies, cap, copy=False)
         per_shard = [None] * n
         for (d, ids), back, (owner, slot), length, ovf in zip(
                 self._groups, backs, windows, lengths, ovfs):

@@ -25,11 +25,15 @@ under one tile, one tile, a count no multiple of the tile, n in {1, 2, 8,
 every window invalid, wide, words at every shard boundary for divisors
 of every size) and 50 repeated calls giving the same bytes,
 the owner probe on hand-made slots (an owner that received nothing,
-ranks past the pay rows), the classic probe with a pay row 0 whose
+ranks past the pay rows), the return on the owner probe's replies in
+place and copied (window counts 0-3 mod 4 and under 4, no slot,
+overflow, one shard, one window, owner and slot off a 16-byte boundary),
+a sharded step's launches and its in-place return, the classic probe with a pay row 0 whose
 second word is not 0 (the payload of every miss), whole
 pipelines on random workloads (one with a 17000-base read), and the two
 experiment kernels (P1, P2) at small, mid and default sizes, P1 at a row
-count that is not a power of two, their refusals and their stream.
+count that is not a power of two, P2 with every bucket matching, every
+probe invalid and unaligned inputs, their refusals and their stream.
 Inputs are made with numpy from seeds; results must be equal, bit for
 bit.
 
@@ -54,6 +58,8 @@ from shark_tpu_torch.ops.kmers import encode_bytes
 from shark_tpu_torch.parallel import sharded_bf
 from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
 from shark_tpu_torch.pipeline import run_pipeline
+from test_torch_return_layout import CASES as RETURN_CASES
+from test_torch_return_layout import return_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -863,8 +869,11 @@ def check_shard_kernels(hi, lo, valid, n, wps, wide, cap, dix=None):
         equal([reply], [sharded_bf.shard_probe_plain(recv, dix.bf_rank,
                                                      dix.pay)])
         back = _transposed(reply)
-        equal(sharded_bf.shard_return(back, k7a[2], k7a[1]),
-              sharded_bf.shard_return_plain(back, k7a[2], k7a[1]))
+        want = sharded_bf.shard_return_plain(back, k7a[2], k7a[1])
+        equal(sharded_bf.shard_return(back, k7a[2], k7a[1]), want)
+        # the replies in place, as the classifier passes them on one card
+        equal(sharded_bf.shard_return(reply.transpose(0, 1), k7a[2],
+                                      k7a[1]), want)
     return k7a
 
 
@@ -971,6 +980,72 @@ def test_sharded_classifier_matches_cpu(cuda, slack):
                                   probe="classic")(codes))
     else:
         assert int(got[4].sum()) > 0
+
+
+def _misaligned(t):
+    """t's values in a view whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", list(RETURN_CASES))
+def test_shard_return_layouts(cuda, case):
+    """K7c on the owner probe's replies in place (transposed, a view) and
+    on their contiguous copy, at window counts per source 0-3 mod 4 and
+    under 4 (the kernel's scalar head and tail, and a payload plane off
+    its 16-byte boundary), with no slot, with overflow, one shard and one
+    window, and with owner and slot off their 16-byte boundary: equal to
+    the plain version."""
+    _, _, _, reply, owner, slot = return_inputs(case, seed=len(case) + 1)
+    reply, owner, slot = reply.to(cuda), owner.to(cuda), slot.to(cuda)
+    view = reply.transpose(0, 1)
+    want = sharded_bf.shard_return_plain(view, owner, slot)
+    for back in (view, view.contiguous()):
+        equal(sharded_bf.shard_return(back, owner, slot), want)
+    equal(sharded_bf.shard_return(view, _misaligned(owner),
+                                  _misaligned(slot)), want)
+
+
+def test_sharded_step_returns_in_place(cuda, monkeypatch):
+    """One step of 8 shards on the card launches each routing kernel
+    once, and the return reads the owner probe's replies in place (the
+    same memory, transposed); the outputs equal 8 CPU shards'."""
+    from shark_tpu_torch import kernels
+
+    genes, index = txome_like_index(17, 1 << 26)
+    rng = np.random.default_rng(21)
+    reads = [g[s:s + 100].tobytes() for g, s in zip(
+        genes[rng.integers(0, 64, size=2048)],
+        rng.integers(0, 1100, size=2048))]
+    codes = encode(reads, L=104)
+    clf = ShardedBFClassifier(index, max_winners=8, devices=[cuda] * 8)
+    seen = {}
+    probe, ret = sharded_bf.shard_probe, sharded_bf.shard_return
+
+    def shard_probe(recv, bf_rank, pay):
+        seen["reply"] = probe(recv, bf_rank, pay)
+        return seen["reply"]
+
+    def shard_return(back, owner, slot):
+        seen["back"] = back
+        return ret(back, owner, slot)
+    monkeypatch.setattr(sharded_bf, "shard_probe", shard_probe)
+    monkeypatch.setattr(sharded_bf, "shard_return", shard_return)
+    clf(codes)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.reset()
+    got = clf(codes)
+    torch.cuda.synchronize()
+    counts = kernels.LAUNCHES.snapshot()
+    assert [counts[k] for k in ("shard_route", "shard_probe",
+                                "shard_return")] == [1, 1, 1]
+    back, reply = seen["back"], seen["reply"]
+    assert back.data_ptr() == reply.data_ptr() and not back.is_contiguous()
+    assert back.stride() == reply.transpose(0, 1).stride()
+    equal(got, ShardedBFClassifier(index, max_winners=8,
+                                   devices=["cpu"] * 8)(codes))
 
 
 def test_reprobe_on_another_thread_and_stream(cuda):
@@ -1212,6 +1287,40 @@ def test_resident_match_kernel(cuda, lgB, n):
     equal([got], [resident_match.match_gather(*_on(cuda, *host))])
     got32 = got.view(torch.int32)
     assert int(got32[0, 0]) == 3 and int(got32[1, 1]) == 105 | (213 << 16)
+
+
+@pytest.mark.parametrize("case", ["every_bucket_matches", "all_invalid",
+                                  "unaligned"])
+def test_resident_match_kernel_extremes(cuda, case):
+    """P2 where every probe's bucket matches in all 8 slots (tags 1-3,
+    pays summed past 16 bits), where every want is the invalid sentinel,
+    and with rows and want off their 16-byte boundary: equal to the plain
+    version and to the gather+match."""
+    lgB, n = 12, resident_match.CHUNK * 8
+    table, bucket, rest, valid = resident_match.build_inputs(n, lgB, seed=5)
+    if case == "every_bucket_matches":
+        rng = np.random.default_rng(6)
+        key = np.uint64(0x2A5)
+        tag = rng.integers(1, 4, size=table.shape).astype(np.uint64)
+        pay = rng.integers(0, 1 << 16, size=table.shape).astype(np.uint64)
+        table[:] = (tag << np.uint64(30) | key << np.uint64(16) | pay).astype(
+            np.uint32)
+        rest[:] = key
+        valid[:] = True
+    elif case == "all_invalid":
+        valid[:] = False
+    args = _on(cuda, *resident_match.probe_inputs(table, bucket, rest, valid))
+    if case == "unaligned":
+        args[0], args[1] = _misaligned(args[0]), _misaligned(args[1])
+    got = resident_match.resident_match(*args)
+    equal([got], [resident_match.resident_match_plain(*args)])
+    equal([got], [resident_match.match_gather(*_on(cuda, table, bucket, rest,
+                                                   valid))])
+    got32 = got.view(torch.int32)
+    if case == "every_bucket_matches":
+        assert bool((got32[:, 0] != 0).all())
+    if case == "all_invalid":
+        assert not bool((got32 != 0).any())
 
 
 def test_experiment_wrappers_refuse(cuda):
