@@ -240,7 +240,8 @@ def time_probe(built):
     def p2():
         return R.resident_match(rows, wantp, t128)
     print(f"  resident_match (P2) on the same buckets: back-to-back "
-          f"{cs.back_to_back_ms(p2):.4f}, device {cs.device_profile(p2)['device_ms']:.4f}",
+          f"{cs.back_to_back_ms(p2):.4f}, device "
+          f"{cs.device_profile(p2)['device_ms']:.4f}",
           flush=True)
 
 

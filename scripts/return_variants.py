@@ -21,9 +21,10 @@ to the slots K7a routes. Variants: this checkout's route.cu and each
 OTHER_CHECKOUT's that differs; where a source has the one-thread-a-window
 kernel that divides each window's flat index by Pn (the kernel before
 the 2-D grid), that kernel on a 2-D grid (a block row a source, no
-division); where it has the 2-D grid of several windows a thread, that
-kernel with 2 chunks of 4 windows a thread and with its reply loads
-through the read-only path without L1 allocation. Each on the
+division); where it has the 2-D grid of 4 windows a thread, that kernel
+with its reply loads through the read-only path without L1 allocation,
+and where it has the knobs (commit 8217fec), with 2 chunks of 4 windows
+a thread and with streaming loads of slot and owner. Each on the
 contiguous [source, owner] replies, and on the path as the classifier
 runs it: a kernel that takes strides reads the [owner, source] replies in
 place, one that does not takes the exchange's contiguous copy first. The
@@ -33,12 +34,15 @@ P2, at experiments/resident_match.py's defaults (5,767,168 probes of a
 16 MB entry16 table, lgB = 19): this checkout's resident_match.cu, each
 OTHER_CHECKOUT's that differs, and, where the source has them, the kernel
 without its L2 evict-last policy on the table loads, without its
-streaming hints on rows, want and out, and without both, and at 1, 2 and
-4 probes a thread (4 also with a warp's outputs staged through shared
-memory so that each store covers 512 contiguous bytes); beside a bare
+streaming hints on rows, want and out, and without both, and, where it
+has the knobs (commit 8217fec: two lanes a probe), at 1, 2 and 4 probes
+a thread (4 also with a warp's outputs staged through shared memory so
+that each store covers 512 contiguous bytes); beside a bare
 streaming pass over the same bytes (16-byte loads of rows and want,
 16-byte stores of 8 bytes a probe, with and without the streaming hints;
-no table: timing only), and the flushed, 64-byte-sector and warm bounds.
+no table: timing only) and chip_smoke.py's bare 32-byte gather of the
+valid probes' buckets (no streams), and the flushed, 64-byte-sector and
+warm bounds.
 """
 
 import ctypes
@@ -80,17 +84,19 @@ GRID2D = (
      "shard_return_kernel<<<dim3(grid_for(Pn, kThreads), "
      "(unsigned)(total / Pn)), kThreads, 0,"),
 )
-# the 2-D grid's knobs
+# the 2-D grid's knobs (commit 8217fec has the first two; the last is
+# committed)
 CHUNKS = "constexpr int kReturnChunks = 1;"
-RETURN_LOAD = '#define SHKK_RETURN_LOAD "ld.global.v2.u32"'
 RETURN_STREAM = "#define SHKK_RETURN_STREAM 0"
+RETURN_LOAD = '#define SHKK_RETURN_LOAD "ld.global.v2.u32"'
 RETURN_EDITS = {
     "chunks2": ((CHUNKS, CHUNKS.replace("1;", "2;")),),
     "stream": ((RETURN_STREAM, RETURN_STREAM[:-1] + "1"),),
     "nc": ((RETURN_LOAD, RETURN_LOAD.replace(
         "ld.global", "ld.global.nc.L1::no_allocate")),),
 }
-# P2's knobs
+# P2's knobs (commit 8217fec has all but the streaming hint; the
+# streaming hint is committed)
 PROBES = re.compile(r"constexpr int kProbes = (\d);")
 TABLE_HINT = "#define SHKK_MATCH_TABLE_HINT 1"
 STREAM_HINT = "#define SHKK_MATCH_STREAM_HINT 1"
@@ -353,6 +359,7 @@ def time_match(built):
     defaults."""
     dev = torch.device("cuda", 0)
     host = R.build_inputs(R.N_BATCH, R.LGB)
+    table = torch.from_numpy(host[0]).to(dev)
     bucket = torch.from_numpy(host[1]).to(dev)
     valid = torch.from_numpy(host[3]).to(dev)
     rows, want, t128 = (torch.from_numpy(a).to(dev)
@@ -398,11 +405,17 @@ def time_match(built):
           f"variants exact; back-to-back ms (L2 warm):", flush=True)
     calls["stream_pass_cs"] = stream_pass(1)
     calls["stream_pass_plain"] = stream_pass(0)
+    # the bare 32-byte gather of the valid probes' buckets (chip_smoke's)
+    gathers = cs.Gathers()
+    bidx = bucket[valid]
+    cs.same("gather32 of the buckets", [gathers.rows(table, bidx, 32)],
+            [cs.xor_rows(table.view(torch.int32)[bidx.long()])])
+    calls["gather32"] = lambda: gathers.rows(table, bidx, 32)
     pv.say_runs(pv.alternate(calls, {"warm": lambda c: c}))
     for name, c in calls.items():
         say_times(name, c)
-        print(f"  {name}: event, L2 warm {cuda_ms(c, reps=cs.REPS, flush=False):.4f}",
-              flush=True)
+        warm = cuda_ms(c, reps=cs.REPS, flush=False)
+        print(f"  {name}: event, L2 warm {warm:.4f}", flush=True)
     fn = functools.partial(R.resident_match, rows, want, t128)
     print(f"  host us a call: resident_match wrapper {host_us(fn):.1f}",
           flush=True)

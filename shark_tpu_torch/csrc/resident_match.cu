@@ -14,91 +14,50 @@
 //
 // VMEM pads the minor dimension to 128 lanes, so the TPU loaded the whole
 // 512-byte row and picked the bucket inside its compare (glane, :65). Here
-// a thread takes kProbes consecutive probes: one load of their rows and
-// one of their wants, then their buckets, each the 32-byte sector at
-// words g * 8 .. g * 8 + 7 of its row in two uint4 loads (all in flight
-// before the first match), the 8 slots matched in registers, and the
-// outputs stored in one store of 8 * kProbes bytes (two 16-byte stores at
-// 4 probes). A want >= 2^18, the invalid
-// sentinel included, matches nothing and reads no table: the TPU's
-// compare value has 18 bits, so it never equals such a want either.
+// one thread takes one probe and reads only its bucket, the 32-byte sector
+// at words g * 8 .. g * 8 + 7 of its row, in two uint4 loads, then matches
+// the 8 slots in registers. A want >= 2^18, the invalid sentinel included,
+// matches nothing and reads no table: the TPU's compare value has 18 bits,
+// so it never equals such a want either.
 //
 // "Resident" on this card means the 50 MB L2: 16 MB is far past the 227 KB
 // of shared memory of an SM, and past a 16-SM cluster's distributed shared
 // memory. What passes through L2 beside the table is 92 MB of streams
-// (rows, want, out), each byte used once. So the streams are loaded and
-// stored with the streaming (evict-first) forms, and the table's loads
-// carry an L2 evict-last policy (createpolicy.fractional): per access,
-// nothing device-wide. No persisting-L2 limit or access-policy window is
-// set, since either would outlive the call and change every later
-// kernel's L2.
+// (rows, want, out), each byte used once, so they are loaded and stored in
+// the streaming (evict-first) forms: 10% faster than plain loads and
+// stores. No persisting-L2 limit or access-policy window is set, since
+// either would outlive the call and change every later kernel's L2.
+// Measured on the card and dropped (scripts/return_variants.py on commit
+// 8217fec): an L2 evict-last policy on the table's loads
+// (createpolicy.fractional, per access; no faster beside the streaming
+// forms), 2 or 4 probes a thread with 8- or 16-byte loads of rows and want
+// (4% and 35-55% slower; 4 with their outputs staged through shared
+// memory for 512-byte stores, 30%), and two lanes a probe, each loading
+// half of the bucket in one request (10% slower).
 //
 // Bound: bytes. Per probe 4 bytes of rows and 4 of want in and 8 out, and
 // 32 bytes of table per distinct bucket touched when the table starts in
 // device memory: n * 16 + touched * 32 bytes, or n * 16 with the table
-// already in L2.
+// already in L2. What holds it above the warm bound is the L2's rate of
+// random 32-byte reads: a bare gather of the same buckets takes longer
+// than the whole kernel.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kProbes = 1;  // probes a thread: 1, 2 or 4
 constexpr u32 kWantLimit = 1u << 18;  // 4 bits of bucket, 14 of key
-// 1: the table's loads carry an L2 evict-last policy
-#define SHKK_MATCH_TABLE_HINT 1
 // 1: rows and want are loaded, and out stored, in the streaming forms
 #define SHKK_MATCH_STREAM_HINT 1
-// 1 (4 probes a thread): a warp's 32-byte outputs go out through shared
-// memory, each store instruction covering 512 contiguous bytes
-#define SHKK_MATCH_STAGE 0
-// 1: two lanes a probe (resident_pair_kernel), in place of kProbes
-#define SHKK_MATCH_PAIR 1
 
-// kProbes consecutive u32 in one load
-template <typename V>
-__device__ __forceinline__ V load_stream(const V* p) {
-#if SHKK_MATCH_STREAM_HINT
-  return __ldcs(p);
-#else
-  return *p;
-#endif
-}
-
-template <typename V>
-__device__ __forceinline__ void store_stream(V* p, V v) {
-#if SHKK_MATCH_STREAM_HINT
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
-
-__device__ __forceinline__ void load_words(const u32* p, u32 (&w)[kProbes]) {
-  if constexpr (kProbes == 4) {
-    const uint4 v = load_stream(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else if constexpr (kProbes == 2) {
-    const uint2 v = load_stream(reinterpret_cast<const uint2*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-  } else {
-    w[0] = load_stream(p);
-  }
-}
-
-__device__ __forceinline__ uint4 load_bucket(const uint4* p, u64 policy) {
-#if SHKK_MATCH_TABLE_HINT
+// a plain load of half a bucket (not the read-only path the compiler may
+// pick for a const __restrict__ pointer)
+__device__ __forceinline__ uint4 load_half(const uint4* p) {
   uint4 v;
-  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+  asm("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(policy));
+      : "l"(p));
   return v;
-#else
-  return *p;
-#endif
 }
 
 // (tv, p0 | p1 << 16) of one probe against its bucket's 8 slots
@@ -127,174 +86,46 @@ __device__ __forceinline__ uint2 match8(uint4 lo, uint4 hi, u32 w) {
 
 __global__ void __launch_bounds__(kThreads) resident_match_kernel(
     const u32* __restrict__ rows, const u32* __restrict__ want,
-    const uint4* __restrict__ table, u32 groups, uint2* __restrict__ out) {
-  const u32 t = blockIdx.x * kThreads + threadIdx.x;
-#if SHKK_MATCH_STAGE
-  __shared__ uint4 stage[kThreads * 2];
-  if (blockIdx.x * kThreads >= groups) return;  // whole warps stay
-  const bool live = t < groups;
-#else
-  if (t >= groups) return;
-  const bool live = true;
-#endif
-  u32 rr[kProbes], ww[kProbes];
-  if (live) {
-    load_words(rows + (size_t)t * kProbes, rr);
-    load_words(want + (size_t)t * kProbes, ww);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kProbes; ++k) ww[k] = 0xFFFFFFFFu;
-  }
-  u64 policy = 0;
-#if SHKK_MATCH_TABLE_HINT
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-      : "=l"(policy));
-#endif
-  uint4 lo[kProbes], hi[kProbes];
-#pragma unroll
-  for (int k = 0; k < kProbes; ++k) {
-    if (ww[k] < kWantLimit) {
-      // 32 uint4 per 512-byte row, 2 per 32-byte bucket
-      const uint4* b = table + (size_t)rr[k] * 32 + (ww[k] >> 14) * 2;
-      lo[k] = load_bucket(b, policy);
-      hi[k] = load_bucket(b + 1, policy);
-    } else {  // tag 0 in every slot: no match
-      lo[k] = make_uint4(0u, 0u, 0u, 0u);
-      hi[k] = lo[k];
-    }
-  }
-  uint2 o[kProbes];
-#pragma unroll
-  for (int k = 0; k < kProbes; ++k) o[k] = match8(lo[k], hi[k], ww[k]);
-  if constexpr (kProbes == 4) {
-    const uint4 a = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
-    const uint4 b = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
-    uint4* dst = reinterpret_cast<uint4*>(out) + (size_t)t * 2;
-#if SHKK_MATCH_STAGE
-    const int lane = threadIdx.x & 31;
-    uint4* mine = stage + (threadIdx.x - lane) * 2;
-    mine[lane * 2] = a;
-    mine[lane * 2 + 1] = b;
-    __syncwarp();
-    dst -= lane * 2;  // the warp's first 16 bytes
-    // 16-byte units of the warp's outputs
-    const long long left = ((long long)groups - (t - lane)) * 2;
-    if (lane < left) store_stream(dst + lane, mine[lane]);
-    if (lane + 32 < left) store_stream(dst + lane + 32, mine[lane + 32]);
-#else
-    store_stream(dst, a);
-    store_stream(dst + 1, b);
-#endif
-  } else if constexpr (kProbes == 2) {
-    store_stream(reinterpret_cast<uint4*>(out) + t,
-                 make_uint4(o[0].x, o[0].y, o[1].x, o[1].y));
-  } else {
-    store_stream(out + t, o[0]);
-  }
-}
-
-// The 8 slots of a probe's bucket, split over two lanes: this lane's 4
-// (the first 4 when `half` is 0), matched and combined with its
-// partner's (lane ^ 1) into the probe's (tv, p0 | p1 << 16).
-__device__ __forceinline__ uint2 match_pair(uint4 q, u32 w, u32 half) {
-  const u32 e[4] = {q.x, q.y, q.z, q.w};
-  const u32 key = w & 0x3FFFu;
-  u32 tv = 0, first = 0, rest = 0;
-  bool any = false;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const u32 meta = e[s] >> 16;
-    const u32 tag = meta >> 14;
-    if (tag != 0u && (meta & 0x3FFFu) == key) {
-      const u32 pay = e[s] & 0xFFFFu;
-      if (any) {
-        rest += pay;
-      } else {
-        first = pay;
-        any = true;
-      }
-      tv = max(tv, tag);
-    }
-  }
-  // (any, tv, first) in one word: first < 2^16, tv < 4
-  const u32 mine = (any ? 1u << 31 : 0u) | (tv << 16) | first;
-  const u32 other = __shfl_xor_sync(0xffffffffu, mine, 1);
-  const u32 other_rest = __shfl_xor_sync(0xffffffffu, rest, 1);
-  const u32 lo = half ? other : mine, hi = half ? mine : other;
-  const u32 lo_rest = half ? other_rest : rest;
-  const u32 hi_rest = half ? rest : other_rest;
-  const u32 hi_sum = (hi >> 31) ? (hi & 0xFFFFu) + hi_rest : 0u;
-  const u32 p0 = (lo >> 31) ? lo & 0xFFFFu : hi & 0xFFFFu;
-  const u32 p1 = (lo >> 31) ? lo_rest + hi_sum : hi_rest;
-  return make_uint2(max((lo >> 16) & 3u, (hi >> 16) & 3u), p0 | (p1 << 16));
-}
-
-// Two lanes a probe: a warp takes 32 consecutive probes (one 4-byte load
-// of rows and of want a lane, coalesced), in two rounds of 16, each pair
-// of lanes loading the two 16-byte halves of one bucket in one
-// instruction, so a bucket costs one sector request, not two; the warp's
-// 32 outputs go out in one coalesced 256-byte store.
-__global__ void __launch_bounds__(kThreads) resident_pair_kernel(
-    const u32* __restrict__ rows, const u32* __restrict__ want,
     const uint4* __restrict__ table, u32 n, uint2* __restrict__ out) {
-  const u32 lane = threadIdx.x & 31;
-  const u32 p = blockIdx.x * kThreads + threadIdx.x;  // n % 32 == 0
-  if (p >= n) return;  // whole warps
-  const u32 r_mine = load_stream(rows + p);
-  const u32 w_mine = load_stream(want + p);
-  u64 policy = 0;
-#if SHKK_MATCH_TABLE_HINT
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-      : "=l"(policy));
+  const u32 i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+#if SHKK_MATCH_STREAM_HINT
+  const u32 r = __ldcs(rows + i);
+  const u32 w = __ldcs(want + i);
+#else
+  const u32 r = rows[i];
+  const u32 w = want[i];
 #endif
-  const u32 half = lane & 1;
-  u32 ww[2];
-  uint4 q[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int src = 16 * r + (int)(lane >> 1);
-    const u32 rr = __shfl_sync(0xffffffffu, r_mine, src);
-    ww[r] = __shfl_sync(0xffffffffu, w_mine, src);
-    q[r] = ww[r] < kWantLimit
-               ? load_bucket(table + (size_t)rr * 32 + (ww[r] >> 14) * 2 +
-                                 half,
-                             policy)
-               : make_uint4(0u, 0u, 0u, 0u);
+  uint4 lo, hi;
+  if (w < kWantLimit) {
+    // 32 uint4 per 512-byte row, 2 per 32-byte bucket
+    const uint4* b = table + (size_t)r * 32 + (w >> 14) * 2;
+    lo = load_half(b);
+    hi = load_half(b + 1);
+  } else {  // tag 0 in every slot: no match
+    lo = make_uint4(0u, 0u, 0u, 0u);
+    hi = lo;
   }
-  const uint2 res0 = match_pair(q[0], ww[0], half);
-  const uint2 res1 = match_pair(q[1], ww[1], half);
-  // probe `lane`'s result is in lanes 2 * (lane & 15) of round lane >> 4
-  const int src = 2 * (int)(lane & 15);
-  const u32 x0 = __shfl_sync(0xffffffffu, res0.x, src);
-  const u32 y0 = __shfl_sync(0xffffffffu, res0.y, src);
-  const u32 x1 = __shfl_sync(0xffffffffu, res1.x, src);
-  const u32 y1 = __shfl_sync(0xffffffffu, res1.y, src);
-  store_stream(out + p, lane < 16 ? make_uint2(x0, y0) : make_uint2(x1, y1));
+  const uint2 o = match8(lo, hi, w);
+#if SHKK_MATCH_STREAM_HINT
+  __stcs(out + i, o);
+#else
+  out[i] = o;
+#endif
 }
 
 }  // namespace
 
-// rows, want, table128 and out 16-byte aligned (the wrapper's
-// allocations and copies), n a multiple of 32
 extern "C" int shkk_resident_match(const void* rows, const void* want,
                                    const void* table128, long long n,
                                    void* out, void* stream) {
-  if (n < 0 || n % 32 || n > 0xFFFFFFFFll - kThreads)
+  if (n < 0 || n > 0xFFFFFFFFll - kThreads)
     return (int)cudaErrorInvalidValue;
-#if SHKK_MATCH_PAIR
   if (n > 0) {
-    resident_pair_kernel<<<grid_for(n, kThreads), kThreads, 0,
-                           (cudaStream_t)stream>>>(
+    resident_match_kernel<<<grid_for(n, kThreads), kThreads, 0,
+                            (cudaStream_t)stream>>>(
         (const u32*)rows, (const u32*)want, (const uint4*)table128, (u32)n,
         (uint2*)out);
-  }
-  return (int)cudaGetLastError();
-#endif
-  if (n > 0) {
-    resident_match_kernel<<<grid_for(n / kProbes, kThreads), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        (const u32*)rows, (const u32*)want, (const uint4*)table128,
-        (u32)(n / kProbes), (uint2*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -83,12 +83,9 @@ constexpr int kProbeSlots = 1;  // K7b: received slots a thread takes
 // K7b's table loads; ld.global.nc.L1::no_allocate.v2.u32 is the read-only
 // path without L1 allocation
 #define SHKK_PROBE_LOAD "ld.global.v2.u32"
-constexpr int kReturnChunks = 1;  // K7c: chunks of 4 windows a thread
 // K7c's reply loads (ld.global.nc.L1::no_allocate.v2.u32: the read-only
 // path without L1 allocation)
 #define SHKK_RETURN_LOAD "ld.global.v2.u32"
-// 1: K7c loads slot and owner in the streaming (evict-first) form
-#define SHKK_RETURN_STREAM 0
 
 // The owner shard of Bloom position (hi, lo), or -1 when the window is
 // invalid or its owner falls outside [0, n); `local` gets the shard-local
@@ -415,11 +412,11 @@ __global__ void __launch_bounds__(kThreads) shard_probe_kernel(
 
 // K7c: the reply to each window, decoded. A block row per source s
 // (blockIdx.y), so a window's source comes from the grid and every index
-// within a source is 32-bit: no division. Each thread takes kReturnChunks
-// chunks of 4 consecutive windows, kThreads * 4 windows apart: one
-// 16-byte load of their slots and one of their owners, the reply of each
-// window that has a slot (every reply load of a thread issued before the
-// first decode), one 16-byte store of the tags and one of the payloads.
+// within a source is 32-bit: no division. Each thread takes 4
+// consecutive windows: one 16-byte load of their slots and one of their
+// owners, the reply of each window that has a slot (the 4 reply loads
+// issued before the first decode), one 16-byte store of the tags and one
+// of the payloads.
 // A source's row of windows need not start on a 16-byte boundary (Pn =
 // b * Ls is odd for odd b and Ls): its up to 3 windows before the first
 // boundary and up to 3 after its last chunk are taken one at a time by
@@ -433,7 +430,12 @@ __global__ void __launch_bounds__(kThreads) shard_probe_kernel(
 // payload out, and 8 bytes of reply per routed window. A warp's 128
 // windows hold runs of consecutive slots of each owner (K7a gives an
 // owner's slots in window order), so the reply loads of a warp fall on
-// few sectors.
+// few sectors. Measured on the card (scripts/return_variants.py): a
+// window a thread on a 1-D grid, its source a 64-bit division, was 1.24x
+// this kernel, and on a 2-D grid 1.22x, so the division was 2% and the
+// 4-byte accesses the rest; two chunks of 4 windows a thread, or
+// streaming loads of slot and owner, no faster; the reply loads through
+// the read-only path without L1 allocation 12% slower.
 __device__ __forceinline__ uint2 load_reply(const uint2* p) {
   uint2 v;
   asm volatile(SHKK_RETURN_LOAD " {%0, %1}, [%2];"
@@ -468,47 +470,24 @@ __global__ void __launch_bounds__(kThreads) shard_return_kernel(
   // the bases are 16-byte aligned, so window r0 + head is on a boundary
   const u32 head = min((0u - s * Pn) & 3u, Pn);
   const u32 chunks = (Pn - head) >> 2;
-  // the payload plane starts S * Pn words after the tags: aligned alike
-  // only when S * Pn % 4 == 0
-  const bool pay16 = (reinterpret_cast<uintptr_t>(py_s + head) & 15u) == 0;
-  const u32 t0 = blockIdx.x * (u32)(kThreads * kReturnChunks) + threadIdx.x;
-  int4 sl[kReturnChunks], ow[kReturnChunks];
-#pragma unroll
-  for (int c = 0; c < kReturnChunks; ++c) {
-    const u32 t = t0 + (u32)(c * kThreads);
-    if (t < chunks) {
-#if SHKK_RETURN_STREAM
-      sl[c] = __ldcs(reinterpret_cast<const int4*>(sl_s + head + 4 * t));
-      ow[c] = __ldcs(reinterpret_cast<const int4*>(ow_s + head + 4 * t));
-#else
-      sl[c] = *reinterpret_cast<const int4*>(sl_s + head + 4 * t);
-      ow[c] = *reinterpret_cast<const int4*>(ow_s + head + 4 * t);
-#endif
-    } else {
-      sl[c] = make_int4(-1, -1, -1, -1);
-      ow[c] = sl[c];
-    }
-  }
-  uint2 pw[kReturnChunks][4];
-#pragma unroll
-  for (int c = 0; c < kReturnChunks; ++c) {
-    pw[c][0] = reply_of(bk, owner_stride, ow[c].x, sl[c].x);
-    pw[c][1] = reply_of(bk, owner_stride, ow[c].y, sl[c].y);
-    pw[c][2] = reply_of(bk, owner_stride, ow[c].z, sl[c].z);
-    pw[c][3] = reply_of(bk, owner_stride, ow[c].w, sl[c].w);
-  }
-#pragma unroll
-  for (int c = 0; c < kReturnChunks; ++c) {
-    const u32 t = t0 + (u32)(c * kThreads);
-    if (t >= chunks) continue;
-    uint4 tg, py;
-    decode_reply(pw[c][0], tg.x, py.x);
-    decode_reply(pw[c][1], tg.y, py.y);
-    decode_reply(pw[c][2], tg.z, py.z);
-    decode_reply(pw[c][3], tg.w, py.w);
+  const u32 t = blockIdx.x * (u32)kThreads + threadIdx.x;
+  if (t < chunks) {
     const u32 j = head + 4 * t;
+    const int4 sl = *reinterpret_cast<const int4*>(sl_s + j);
+    const int4 ow = *reinterpret_cast<const int4*>(ow_s + j);
+    const uint2 pw0 = reply_of(bk, owner_stride, ow.x, sl.x);
+    const uint2 pw1 = reply_of(bk, owner_stride, ow.y, sl.y);
+    const uint2 pw2 = reply_of(bk, owner_stride, ow.z, sl.z);
+    const uint2 pw3 = reply_of(bk, owner_stride, ow.w, sl.w);
+    uint4 tg, py;
+    decode_reply(pw0, tg.x, py.x);
+    decode_reply(pw1, tg.y, py.y);
+    decode_reply(pw2, tg.z, py.z);
+    decode_reply(pw3, tg.w, py.w);
     *reinterpret_cast<uint4*>(tg_s + j) = tg;
-    if (pay16) {
+    // the payload plane starts S * Pn words after the tags: on a 16-byte
+    // boundary alike only when S * Pn % 4 == 0
+    if ((reinterpret_cast<uintptr_t>(py_s + j) & 15u) == 0) {
       *reinterpret_cast<uint4*>(py_s + j) = py;
     } else {
       py_s[j] = py.x;
@@ -609,10 +588,8 @@ extern "C" int shkk_shard_return(const void* back, long long src_stride,
       owner_stride < 0 || owner_stride > 0xFFFFFFFFll)
     return (int)cudaErrorInvalidValue;
   if (n_src > 0 && Pn > 0) {
-    // a block for every kThreads * kReturnChunks chunks of 4, and at least
-    // one for a source of fewer than 4 windows
-    const unsigned gx =
-        grid_for(Pn / 4 + 1, kThreads * kReturnChunks);
+    // a thread for every 4 windows, and a block for a source of fewer
+    const unsigned gx = grid_for(Pn / 4 + 1, kThreads);
     u32* tagv = (u32*)out;
     shard_return_kernel<<<dim3(gx, n_src), kThreads, 0,
                           (cudaStream_t)stream>>>(

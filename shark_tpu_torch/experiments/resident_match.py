@@ -88,8 +88,7 @@ def resident_match(rows: torch.Tensor, want: torch.Tensor,
     kernels.require(rows, "rows", torch.int32, 1, dev)
     kernels.require(want, "want", torch.uint32, 1, dev)
     kernels.require(table128, "table128", torch.uint32, 2, dev)
-    rows, want, table128 = (kernels.aligned16(t)
-                            for t in (rows, want, table128))
+    table128 = kernels.aligned16(table128)  # 16-byte bucket loads
     n = rows.shape[0]
     out = torch.empty((n, 2), dtype=torch.uint32, device=dev)
     rc = kernels.lib().shkk_resident_match(

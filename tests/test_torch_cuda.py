@@ -28,8 +28,9 @@ the owner probe on hand-made slots (an owner that received nothing,
 ranks past the pay rows), the return on the owner probe's replies in
 place and copied (window counts 0-3 mod 4 and under 4, no slot,
 overflow, one shard, one window, owner and slot off a 16-byte boundary),
-a sharded step's launches and its in-place return, the classic probe with a pay row 0 whose
-second word is not 0 (the payload of every miss), whole
+a sharded step's launches and its in-place return, the classic probe
+with a pay row 0 whose second word is not 0 (the payload of every
+miss), whole
 pipelines on random workloads (one with a 17000-base read), and the two
 experiment kernels (P1, P2) at small, mid and default sizes, P1 at a row
 count that is not a power of two, P2 with every bucket matching, every
