@@ -40,7 +40,10 @@ Phases, each printing its lines; any failure exits non-zero:
    taken, and a row none of whose sessions agrees is marked
    device_ms_suspect, with every reading.
    Each batch prints how many reads took the finish's block path, held to
-   finish_heavy_reads_plain. A batch of 64 reads at L = 32768 holds the
+   finish_heavy_reads_plain; where the index has group ids, the finish's
+   group pass alone (finish_group_count, what a part of a replicated batch
+   runs) and the finish given a count that flips its group choice are held
+   to their plain versions too. A batch of 64 reads at L = 32768 holds the
    front end's long-read kernel to its plain version. At the record shape
    the xl probe's footprint line times it with every bucket masked into
    the table's first 32 MB and 256 MB, on the whole table, and without
@@ -83,9 +86,24 @@ Phases, each printing its lines; any failure exits non-zero:
    on their first 20k reads ((d)'s through --load-index, so through the
    xl probe-table cache), and 2000 reads of each must agree with the
    port's oracle; (e), (f) and (g) must write the prefix of (d)'s bytes.
+   Then the entry points of the replicated index, the host backend, the
+   profiler and the multi-host launch: (h) run_pipeline on (b)'s sample
+   with the index replicated over [cuda:0, cuda:0]
+   (DataParallelClassifier), (b)'s bytes; (i) the same with --load-index
+   on (e)'s reads (the xl table cache), (d)'s prefix; (j) --backend
+   native through the CLI on (a)'s first 20k reads with -t the host's CPU
+   count, (a)'s --backend cpu bytes on them and no kernel launch, its
+   reads/s beside the CPU count; (k) (a) again with --profile-dir, (a)'s
+   bytes and launch counts, and the card's busy share read from the
+   trace's kernel records over the span from the first kernel to the
+   last (and against classify_s); (l) (c)'s pairs split in two at a pair
+   boundary, two CLI processes at once on the card (--coordinator
+   localhost:<free port> --num-hosts 2 --host-id 0|1, each with a
+   timeout), whose parts merged in host order are (c)'s bytes.
    The launch counters are zeroed before each run and read after it:
-   (a)-(c) launch the hashed path's kernels, (d) the xl path's, (e) the
-   classic path's, (f) and (g) the sharded path's;
+   (a)-(c) and (h) launch the hashed path's kernels, (d) and (i) the xl
+   path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
+   (a)'s exactly, (j) none;
 5. the port's counterparts of the two Pallas experiments, through their
    entry points at their default sizes (shark_tpu_torch.experiments:
    gather_tiles.main, 2^20 random 512-byte tiles of a 1 GiB table;
@@ -99,7 +117,8 @@ Phases, each printing its lines; any failure exits non-zero:
    (the streams alone, the table in L2). No classify run (a)-(g) may
    launch these two kernels.
 
-The last lines are the kernels' JSON record, the nvidia-smi line, and
+The last lines are the kernels' JSON record (launches summed over
+(a)-(l) and phase 5), the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
 (a first check of new kernels), and prints no result line. --out DIR also
 writes the kernels' record and the end-to-end stats there.
@@ -170,6 +189,7 @@ KERNEL_INFO = {
 # experiment kernel of another path
 PATH_KERNELS = {
     "hashed": ("front", "probe", "finish", "pairs"),
+    "panel": ("front", "probe", "finish"),  # the hashed path, few ties
     "xl": ("front", "probe_xl", "finish"),
     "classic": ("front", "classic", "finish"),
     "sharded": ("front", "shard_route", "shard_probe", "shard_return",
@@ -180,6 +200,7 @@ PATH_KERNELS = {
 PATH_ONLY = ("probe", "probe_xl", "classic", "shard_route", "shard_probe",
              "shard_return", "gather_tiles", "resident_match")
 SHARDS = 8
+CARD = torch.device("cuda", 0)  # the replicated runs' device, twice
 
 
 class SmokeFailure(Exception):
@@ -964,6 +985,24 @@ def check_kernels(clf, genes, shapes, record_shape, timer, gathers):
         n_block = step.finish_heavy_count()
         e3 = same("finish_from_tags", k3[:3],
                   step.finish_from_tags_plain(*args3, **kw3)[:3])
+        if hmeta.has_rows and meta.rows_bits:
+            # K3's group pass alone and the finish given another count
+            # (a part of a replicated batch): the plain versions' results
+            n_fix = torch.zeros(1, dtype=torch.int32, device=tagv.device)
+            step.finish_group_count(tagv, payv, n_fix, meta=meta,
+                                    has_rows=True)
+            n_plain = int(step._group_flags(
+                tagv.to(torch.int64), payv.to(torch.int64),
+                meta.rows_bits)[2].sum())
+            need(int(n_fix) == n_plain, f"finish_group_count: {int(n_fix)} "
+                 f"impure reads, the plain pass counts {n_plain}")
+            cap = step.fix_caps(B)[1]
+            flip = torch.full_like(n_fix, 0 if n_plain > cap else cap + 1)
+            same("finish_from_tags (batch count)",
+                 step.finish_from_tags(*args3, n_fix=flip, fix_cap2=cap,
+                                       **kw3)[:3],
+                 step.finish_from_tags_plain(*args3, n_fix=flip,
+                                             fix_cap2=cap, **kw3)[:3])
         want_block = int(step.finish_heavy_reads_plain(
             tagv, payv, rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta, L=L,
             has_rows=hmeta.has_rows).sum())
@@ -1782,7 +1821,287 @@ def e2e_txome(d, fa, reads, launches):
             f"{build_s:.1f} s); its bytes equal (d)'s on its "
             f"{N_CLASSIC_READS} reads")
     out["sharded8"] = stats
+    del clf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) the replicated index over [cuda:0, cuda:0], --load-index (the xl
+    # table cache), on the same reads
+    from shark_tpu_torch.parallel.data_parallel import DataParallelClassifier
+    from shark_tpu_torch.pipeline import _probe_opts
+
+    cfg = SharkConfig(
+        fasta_path=fa, sample1_path=files["classic", "1"], load_index=idx,
+        out1_path=os.path.join(d, "replicated_gpu.1.fq"),
+        ssv_path=os.path.join(d, "replicated_gpu.ssv"), k=K, c=C, bf_gb=BF_GB)
+    t0 = time.perf_counter()
+    clf = DataParallelClassifier(
+        SharkIndex.load(idx), max_winners=16, c=C,
+        devices=[CARD] * 2, probe_opts=_probe_opts(cfg))
+    build_s = time.perf_counter() - t0
+    kernels.LAUNCHES.reset()
+    stats = run_pipeline(cfg, classifier=clf)
+    stats["wall_s"] = time.perf_counter() - t0
+    launches["i"] = ("xl", kernels.LAUNCHES.snapshot())
+    need(stats["probe"] == "xl", f"replicated txome: probe {stats['probe']}")
+    need(stats["n_reads"] == N_CLASSIC_READS,
+         f"replicated txome: read count {stats}")
+    same_prefix(d, "replicated txome", "all_gpu", "replicated_gpu",
+                N_CLASSIC_READS, False)
+    stats["classifier_build_s"] = build_s
+    say_e2e("replicated_txome", stats, "(i) the index replicated over "
+            f"[cuda:0, cuda:0] (--load-index, xl table cache; classifier "
+            f"built in {build_s:.1f} s); its bytes equal (d)'s on its "
+            f"{N_CLASSIC_READS} reads")
+    out["replicated_txome"] = stats
+    del clf
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
+
+
+def e2e_replicated_homolog(work, n_reads, launches):
+    """(h) run_pipeline on (b)'s sample with the index replicated over
+    [cuda:0, cuda:0]: (b)'s bytes, the hashed path's launches."""
+    from shark_tpu_torch import kernels
+    from shark_tpu_torch.config import SharkConfig
+    from shark_tpu_torch.parallel.data_parallel import DataParallelClassifier
+    from shark_tpu_torch.pipeline import load_or_build_index, run_pipeline
+    from shark_tpu_torch.utils.timers import PhaseTimer
+
+    d = os.path.join(work, "homolog")
+    cfg = SharkConfig(
+        fasta_path=os.path.join(d, "genes.fa"),
+        sample1_path=os.path.join(d, "all_1.fq"),
+        out1_path=os.path.join(d, "replicated_gpu.1.fq"),
+        ssv_path=os.path.join(d, "replicated_gpu.ssv"), k=K, c=C, bf_gb=BF_GB)
+    t0 = time.perf_counter()
+    clf = DataParallelClassifier(
+        load_or_build_index(cfg, PhaseTimer()), max_winners=16, c=C,
+        devices=[CARD] * 2)
+    build_s = time.perf_counter() - t0
+    kernels.LAUNCHES.reset()
+    stats = run_pipeline(cfg, classifier=clf)
+    stats["wall_s"] = time.perf_counter() - t0
+    launches["h"] = ("hashed", kernels.LAUNCHES.snapshot())
+    need(stats["probe"] == "hashed", f"replicated: probe {stats['probe']}")
+    need(stats["n_reads"] == n_reads, f"replicated: read count {stats}")
+    need(stats["group_rows"] > 0, "replicated: no group verdicts")
+    same_prefix(d, "replicated homolog", "replicated_gpu", "all_gpu", n_reads,
+                False)
+    stats["classifier_build_s"] = build_s
+    say_e2e("replicated_homolog", stats, "(h) the index replicated over "
+            f"[cuda:0, cuda:0] (index and classifier built in {build_s:.1f} "
+            "s); its bytes equal (b)'s")
+    return stats
+
+
+def e2e_native_backend(work):
+    """(j) --backend native through the CLI on the panel's first
+    N_CPU_CHECK reads, -t the host's CPU count: (a)'s --backend cpu bytes
+    on those reads, and no kernel launch."""
+    from shark_tpu_torch import kernels
+
+    d = os.path.join(work, "panel")
+    files = {("head", "1"): os.path.join(d, "head_1.fq")}
+    n_cpu = os.cpu_count()
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    stats = run_tag(d, os.path.join(d, "genes.fa"), files, "head",
+                    "head_native", ["--backend", "native", "-t", str(n_cpu)])
+    stats["wall_s"] = time.perf_counter() - t0
+    counts = kernels.LAUNCHES.snapshot()
+    need(not any(counts.values()), f"--backend native launched {counts}")
+    need(stats["probe"] == "host", f"native: probe {stats['probe']}")
+    need(stats["n_reads"] == N_CPU_CHECK, f"native: read count {stats}")
+    same_prefix(d, "native", "head_native", "head_cpu", N_CPU_CHECK, False)
+    rps = stats["n_reads"] / stats["classify_s"]
+    stats["host_cpus"] = n_cpu
+    say(f"e2e native (j): probe=host reads={stats['n_reads']} "
+        f"associations={stats['n_associations']} "
+        f"classify_s={stats['classify_s']:.3f} reads_per_s={rps:.0f} on "
+        f"{n_cpu} host CPUs (-t {n_cpu}) index_s={stats['index_s']:.2f} "
+        f"wall_s={stats['wall_s']:.2f}; --backend native, no kernel "
+        f"launched; its bytes equal (a)'s --backend cpu run on its "
+        f"{N_CPU_CHECK} reads")
+    return stats
+
+
+def trace_busy(trace_dir):
+    """The card's busy share from a torch.profiler Chrome trace: the union
+    of its kernel records (and of kernels, copies and memsets) over the
+    window from the first kernel's start to the last kernel's end; and,
+    for each host thread that ran torch operators, the union of its
+    operators and of its CUDA runtime calls, with the runtime calls that
+    took longest."""
+    names = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    need(len(names) == 1, f"profile: trace files {names}")
+    with open(os.path.join(trace_dir, names[0])) as f:
+        events = json.load(f)["traceEvents"]
+
+    def spans(cats, tid=None):
+        return sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                      if e.get("ph") == "X" and e.get("cat") in cats
+                      and (tid is None or e.get("tid") == tid))
+
+    def union(iv):
+        total, end = 0.0, None
+        for a, b in iv:
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+
+    kern = spans(("kernel",))
+    need(kern, "profile: the trace holds no CUDA kernel record")
+    window = max(b for _, b in kern) - kern[0][0]
+    dev = spans(("kernel", "gpu_memcpy", "gpu_memset"))
+    host = {}
+    for tid in sorted({e.get("tid") for e in events
+                       if e.get("cat") == "cpu_op"}, key=str):
+        calls = {}
+        for e in events:
+            if e.get("cat") == "cuda_runtime" and e.get("tid") == tid:
+                calls[e["name"]] = calls.get(e["name"], 0) + e.get("dur", 0)
+        host[str(tid)] = {
+            "ops_ms": union(spans(("cpu_op",), tid)) / 1e3,
+            "runtime_ms": union(spans(("cuda_runtime",), tid)) / 1e3,
+            "top_runtime_ms": {k: v / 1e3 for k, v in sorted(
+                calls.items(), key=lambda kv: -kv[1])[:3]}}
+    return {"trace": names[0], "trace_mb": os.path.getsize(
+                os.path.join(trace_dir, names[0])) / 1e6,
+            "kernels": len(kern), "kernel_busy_ms": union(kern) / 1e3,
+            "device_busy_ms": union(dev) / 1e3, "window_ms": window / 1e3,
+            "host": host}
+
+
+def e2e_profiled_panel(work, n_reads, want, launches, keep=""):
+    """(k) (a) again with --profile-dir: a trace, (a)'s bytes and (a)'s
+    launch counts; the card's busy share over the classify window, and
+    the host threads' torch and CUDA runtime time. The trace is copied
+    into `keep` when given."""
+    from shark_tpu_torch import kernels
+
+    d = os.path.join(work, "panel")
+    files = {("all", "1"): os.path.join(d, "all_1.fq")}
+    trace_dir = os.path.join(d, "trace")
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    stats = run_tag(d, os.path.join(d, "genes.fa"), files, "all",
+                    "all_prof", ["--profile-dir", trace_dir])
+    stats["wall_s"] = time.perf_counter() - t0
+    counts = kernels.LAUNCHES.snapshot()
+    launches["k"] = ("panel", counts)
+    need(counts == want, f"profiled: launches {counts} != (a)'s {want}")
+    need(stats["n_reads"] == n_reads, f"profiled: read count {stats}")
+    same_prefix(d, "profiled", "all_prof", "all_gpu", n_reads, False)
+    busy = trace_busy(trace_dir)
+    stats["trace"] = busy
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        shutil.copy(os.path.join(trace_dir, busy["trace"]),
+                    os.path.join(keep, "panel_k.pt.trace.json"))
+    say_e2e("profiled_panel", stats, "(k) --profile-dir; its bytes and "
+            "launch counts equal (a)'s")
+    cls_ms = stats["classify_s"] * 1e3
+    say(f"card busy share (k), panel (a) under --profile-dir: kernels "
+        f"{100 * busy['kernel_busy_ms'] / busy['window_ms']:.2f}% of the "
+        f"{busy['window_ms']:.1f} ms from the first kernel's start to the "
+        f"last kernel's end ({busy['kernels']} kernel records, "
+        f"{busy['kernel_busy_ms']:.2f} ms busy; with copies and memsets "
+        f"{100 * busy['device_busy_ms'] / busy['window_ms']:.2f}%); "
+        f"kernels {100 * busy['kernel_busy_ms'] / cls_ms:.2f}% of "
+        f"classify_s ({cls_ms:.1f} ms); trace {busy['trace_mb']:.1f} MB")
+    for tid, h in busy["host"].items():
+        say(f"trace host thread {tid} (k): torch operators "
+            f"{h['ops_ms']:.1f} ms, CUDA runtime {h['runtime_ms']:.1f} ms "
+            f"(longest: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                     h["top_runtime_ms"].items()) + ")")
+    return stats
+
+
+def e2e_multihost(work, n_pairs, timeout_s=300):
+    """(l) (c)'s paired sample split at a pair boundary into two halves,
+    two CLI processes at once on cuda:0 (--coordinator localhost:<free
+    port> --num-hosts 2 --host-id 0|1, torch.distributed over gloo), each
+    with a timeout: their parts merged in host order are (c)'s bytes."""
+    import socket
+
+    from shark_tpu_torch.parallel.distributed import (
+        host_suffixed,
+        merge_outputs,
+    )
+
+    d = os.path.join(work, "paired")
+    half = n_pairs // 2
+    mates = {}
+    for mate in ("1", "2"):
+        with open(os.path.join(d, f"all_{mate}.fq"), "rb") as f:
+            lines = f.read().splitlines(True)
+        need(len(lines) == 4 * n_pairs, f"multihost: mate {mate} records")
+        for h, part in enumerate((lines[:4 * half], lines[4 * half:])):
+            path = os.path.join(d, f"host{h}_{mate}.fq")
+            with open(path, "wb") as f:
+                f.write(b"".join(part))
+            mates[h, mate] = path
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out = os.path.join(d, "multihost")
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for h in range(2):
+            log = open(f"{out}.log.{h}", "wb")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "shark_tpu_torch", "-r",
+                 os.path.join(d, "genes.fa"), "-1", mates[h, "1"], "-2",
+                 mates[h, "2"], "-o", f"{out}.1.fq", "-p", f"{out}.2.fq",
+                 "--ssv", f"{out}.ssv", "-k", str(K), "-c", str(C), "-b",
+                 str(BF_GB), "--stats-json", f"{out}.json", "--coordinator",
+                 f"localhost:{port}", "--num-hosts", "2", "--host-id", str(h)],
+                stdout=log, stderr=subprocess.STDOUT, cwd=d, env=env))
+        for h, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, timeout_s
+                                        - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                with open(f"{out}.log.{h}", "rb") as f:
+                    tail = f.read()[-2000:].decode(errors="replace")
+                raise SmokeFailure(f"multihost: host {h} exited {rc}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall_s = time.perf_counter() - t0
+    for ext in (".ssv", ".1.fq", ".2.fq"):
+        merge_outputs([host_suffixed(out + ext, h) for h in range(2)],
+                      out + ext)
+    same_prefix(d, "multihost", "multihost", "all_gpu", n_pairs, True)
+    hosts = []
+    for h in range(2):
+        with open(host_suffixed(f"{out}.json", h)) as f:
+            hosts.append(json.load(f))
+        need(hosts[-1]["probe"] == "hashed" and hosts[-1]["n_reads"] == (
+            half if h == 0 else n_pairs - half), f"multihost: host {h} "
+             f"stats {hosts[-1]}")
+    say(f"e2e multihost (l): 2 processes on cuda:0, {half} + "
+        f"{n_pairs - half} pairs, wall {wall_s:.1f} s (both started to both "
+        f"done), classify_s " + " / ".join(
+            f"{x['classify_s']:.3f}" for x in hosts)
+        + "; the merged parts equal (c)'s bytes (ssv, both FASTQs)")
+    return {"wall_s": wall_s, "hosts": hosts}
 
 
 # ---------------------------------------------------------------------------
@@ -1935,6 +2254,12 @@ def main() -> int:
         e2e_stats["paired"] = e2e(work, "paired", pgenes, b"GENE",
                                   *pair_reads(rng, pgenes, N_PAIRS))
         launches["a-c"] = ("hashed", kernels.LAUNCHES.snapshot())
+        e2e_stats["replicated_homolog"] = e2e_replicated_homolog(
+            work, N_HOMOLOG_READS, launches)
+        e2e_stats["native"] = e2e_native_backend(work)
+        e2e_stats["profiled_panel"] = e2e_profiled_panel(
+            work, N_PANEL_READS, a, launches, args.out)
+        e2e_stats["multihost"] = e2e_multihost(work, N_PAIRS)
         e2e_stats.update(e2e_txome(
             tx_dir, tx_fa, panel_reads(np.random.default_rng(2027), tgenes,
                                        N_TXOME_READS), launches))
@@ -1959,7 +2284,7 @@ def main() -> int:
                      f"the {path} path launched the {name} kernel")
     total = {name: sum(c[name] for _, c in launches.values())
              for name in KERNEL_INFO}
-    say(f"launches over (a)-(g) and phase 5: {json.dumps(total)} (hashed "
+    say(f"launches over (a)-(l) and phase 5: {json.dumps(total)} (hashed "
         f"path after (a): {json.dumps(a)}, after (b): {json.dumps(b)})")
 
     kernels_line = {"kernels": []}

@@ -33,7 +33,7 @@ nothing in it. The xl layout has no main stash.
 K2, the probe (probe_hashed), runs csrc/probe.cu on a CUDA tensor and its
 plain PyTorch version on a CPU tensor; K6, the xl probe with its side
 resolve (probe_xl), runs csrc/xl.cu or its plain version likewise.
-classify_kernel_hashed_packed composes K1 -> K2 or K6 -> K3.
+step.Classifier composes K1 -> K2 or K6 -> K3.
 """
 
 from __future__ import annotations
@@ -49,9 +49,6 @@ from shark_tpu_torch.classify.step import (
     TAG_D1,
     TAG_D2,
     TAG_ROW,
-    StaticMeta,
-    finish_from_tags,
-    front_end,
     gather_u32,
     pack_rows_u32,
     require_windows,
@@ -766,31 +763,3 @@ def probe_xl(
     kernels.check(rc, "probe_xl")
     kernels.LAUNCHES.add("probe_xl")
     return tagv, payv
-
-
-def classify_kernel_hashed_packed(
-    dix: HashedDeviceIndex,
-    thresh: torch.Tensor,
-    packed: torch.Tensor,  # u8[B, L/4]
-    vmask: torch.Tensor,  # u8[B, L/8]
-    *,
-    meta: StaticMeta,
-    hmeta: HashedMeta,
-    max_winners: int,
-):
-    """K1 -> K2 (or K6 for an xl table) -> K3: planar reads -> (packed
-    i32[B], winners i32[B, W], best_cov i32[B], length i32[B]), bit-exact
-    with shark_tpu's classify_kernel_hashed_packed."""
-    L = packed.shape[1] * 4
-    idx_hi, idx_lo, win_valid, length = front_end(packed, vmask, meta)
-    if hmeta.xl:
-        tagv, payv = probe_xl(idx_hi, idx_lo, win_valid, dix.table,
-                              dix.side, dix.side_stash, hmeta)
-    else:
-        tagv, payv = probe_hashed(idx_hi, idx_lo, win_valid, dix.table,
-                                  dix.stash, hmeta, dix.stash_rows)
-    return finish_from_tags(
-        tagv, payv, length, thresh,
-        rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta,
-        max_winners=max_winners, L=L, has_rows=hmeta.has_rows,
-    )

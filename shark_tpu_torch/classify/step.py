@@ -567,6 +567,20 @@ def unpack_codes(packed: torch.Tensor, vmask: torch.Tensor) -> torch.Tensor:
     return torch.where(v == 1, c, torch.full_like(c, INVALID))
 
 
+def planar(codes, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """uint8 [B, L] byte codes -> pack_codes' (packed, vmask) on `device`,
+    L padded with invalid bases to a multiple of 8 for the planar packing
+    (no verdict changes: window positions, lengths and thresholds are the
+    unpadded read's)."""
+    codes = torch.as_tensor(codes).to(device)
+    B, L = codes.shape
+    if L % 8:
+        pad = torch.full((B, 8 - L % 8), INVALID, dtype=torch.uint8,
+                         device=device)
+        codes = torch.cat([codes, pad], dim=1)
+    return pack_codes(codes)
+
+
 def pack_codes(codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Byte codes u8[B, L] (L % 8 == 0) -> the planar (packed, vmask) pair
     that unpack_codes inverts."""
@@ -712,13 +726,16 @@ def fix_caps(B: int) -> Tuple[int, int]:
 
 
 def finish_from_tags_plain(tagv, payv, length, thresh, *, rows3, ext_mat,
-                           meta, max_winners, L, has_rows):
+                           meta, max_winners, L, has_rows, n_fix=None,
+                           fix_cap2=None):
     """Plain version of the finish, in int64. Every read gets its full
     verdict (direct keys, rows3 genes, extension genes); then, when the
     index carries group ids and the batch has at most FIX_CAP2 impure
     row-hitting reads, pure reads get their GROUP verdict instead. That
     is the verdict every branch of shark_tpu's finish_from_tags gives
-    (its row-free, compact-row and sub-batch branches only change cost)."""
+    (its row-free, compact-row and sub-batch branches only change cost).
+    `n_fix`, `fix_cap2`: the whole batch's count and cap when these reads
+    are one part of it (finish_group_count)."""
     B, Ls = tagv.shape
     dev = tagv.device
     t = tagv.to(torch.int64)
@@ -784,7 +801,7 @@ def finish_from_tags_plain(tagv, payv, length, thresh, *, rows3, ext_mat,
     packed, winners, best_cov = _score_keys(
         torch.cat(keys, dim=1), meta.n_genes, length, thresh, row_ovf,
         **score)
-    grp, gmax = _group_reads(t, p, has_rows, rb)
+    grp, gmax = _group_reads(t, p, has_rows, rb, n_fix, fix_cap2)
     if bool(grp.any()):
         sel = torch.nonzero(grp).flatten()
         gkeys = torch.where(is_row[sel],
@@ -802,14 +819,27 @@ def finish_from_tags_plain(tagv, payv, length, thresh, *, rows3, ext_mat,
     return packed, winners, best_cov, length
 
 
-def _group_reads(t, p, has_rows, rb):
+def _group_reads(t, p, has_rows, rb, n_fix=None, fix_cap2=None):
     """(bool[B]: the pure reads that take their GROUP verdict, int64[B]:
     each read's largest group id over its row windows, or -1) of int64 tags
     and payloads. Group verdicts need group ids in the payloads (rb > 0)
-    and a batch with at most FIX_CAP2 impure row-hitting reads."""
+    and a batch with at most FIX_CAP2 impure row-hitting reads. `n_fix`
+    (a one-element tensor) and `fix_cap2`: that count and that cap of the
+    whole batch when these rows are one part of it; by default the rows'
+    own."""
     B = t.shape[0]
     if not (has_rows and rb):
         return torch.zeros((B,), dtype=torch.bool, device=t.device), None
+    pure, gmax, need_fix = _group_flags(t, p, rb)
+    count = int(need_fix.sum()) if n_fix is None else int(n_fix.sum())
+    if count > (fix_caps(B)[1] if fix_cap2 is None else fix_cap2):
+        pure = torch.zeros_like(pure)
+    return pure, gmax
+
+
+def _group_flags(t, p, rb):
+    """(pure, largest group id, impure row-hitting) per read: the group
+    pass of the finish."""
     is_row = t == TAG_ROW
     direct = (t == TAG_D1) | (t == TAG_D2)
     gid = p >> rb
@@ -817,9 +847,7 @@ def _group_reads(t, p, has_rows, rb):
     gmin = torch.where(is_row, gid, torch.full_like(gid, 0x7FFFFFFF))
     any_row = is_row.any(dim=1)
     pure = any_row & ~direct.any(dim=1) & (gmax == gmin.min(dim=1).values)
-    if int((any_row & ~pure).sum()) > fix_caps(B)[1]:
-        pure = torch.zeros_like(pure)
-    return pure, gmax
+    return pure, gmax, any_row & ~pure
 
 
 # Keys a read may have on the CUDA finish's warp path (csrc/finish.cu
@@ -879,15 +907,22 @@ def finish_from_tags(
     max_winners: int,
     L: int,
     has_rows: bool,
+    n_fix: Optional[torch.Tensor] = None,
+    fix_cap2: Optional[int] = None,
 ):
     """K3: (tag, payload) per window -> (packed i32[B], winners i32[B, W],
     best_cov i32[B], length i32[B]). CUDA tensors run csrc/finish.cu (a
     batch-wide group pass, one warp per read, then a block per read too
-    heavy for a warp); CPU tensors the plain version."""
+    heavy for a warp); CPU tensors the plain version. For one part of a
+    batch split over devices, `n_fix` (i32[1] on this device: the whole
+    batch's impure row-hitting reads, summed by finish_group_count) and
+    `fix_cap2` (the whole batch's FIX_CAP2) give the part the batch's
+    group choice."""
     if not tagv.is_cuda:
         return finish_from_tags_plain(
             tagv, payv, length, thresh, rows3=rows3, ext_mat=ext_mat,
-            meta=meta, max_winners=max_winners, L=L, has_rows=has_rows)
+            meta=meta, max_winners=max_winners, L=L, has_rows=has_rows,
+            n_fix=n_fix, fix_cap2=fix_cap2)
     dev = tagv.device
     B, Ls = tagv.shape
     W = max_winners
@@ -906,6 +941,10 @@ def finish_from_tags(
         kernels.require(ext_mat, "ext_mat", torch.uint16, 2, dev)
         if ext_mat.shape[1] != ext_w:
             raise ValueError("ext_mat width != ext3_w")
+    if n_fix is not None:
+        kernels.require(n_fix, "n_fix", torch.int32, 1, dev)
+        if n_fix.numel() != 1:
+            raise ValueError("n_fix must hold one count")
     # the outputs are views of one allocation, and so is the kernel's
     # work, at these int32 offsets: its counters (n_fix of the group pass,
     # the block path's list length; zeroed by the kernel's entry point) at
@@ -938,13 +977,49 @@ def finish_from_tags(
         D, kernels.ptr(ext_mat if has_ext else None), ext_w if has_ext else 0,
         B, Ls, L, meta.k, meta.pos_bits, meta.n_genes, meta.rows_bits, W,
         int(has_rows), int(groups), counters + 4 * (2 * B + 2),
-        counters + 4 * (B + 2), counters, fix_caps(B)[1], key_cap, grid,
+        counters + 4 * (B + 2), counters,
+        fix_caps(B)[1] if fix_cap2 is None else fix_cap2,
+        kernels.ptr(n_fix), key_cap, grid,
         kernels.ptr(scratch), counters + 8, packed.data_ptr(),
         winners.data_ptr(), best_cov.data_ptr(), kernels.stream(dev))
     kernels.check(rc, "finish")
     kernels.LAUNCHES.add("finish")
     _FINISH_STATE.work = work
     return packed, winners, best_cov, length
+
+
+def finish_group_count(tagv: torch.Tensor, payv: torch.Tensor,
+                       n_fix: torch.Tensor, *, meta: "StaticMeta",
+                       has_rows: bool) -> None:
+    """K3's group pass alone, for one part of a batch split over devices:
+    adds the part's impure row-hitting reads to `n_fix` (i32[1] on this
+    device, zeroed once for the whole batch). Nothing to count when the
+    index has no group ids. CUDA tensors run csrc/finish.cu's group pass;
+    CPU tensors the plain one."""
+    if not (has_rows and meta.rows_bits):
+        return
+    if not tagv.is_cuda:
+        _, _, need_fix = _group_flags(tagv.to(torch.int64),
+                                      payv.to(torch.int64), meta.rows_bits)
+        n_fix += need_fix.sum().to(torch.int32)
+        return
+    dev = tagv.device
+    for name, x, dt, nd in (
+        ("tagv", tagv, torch.uint32, 2), ("payv", payv, torch.uint32, 2),
+        ("n_fix", n_fix, torch.int32, 1),
+    ):
+        kernels.require(x, name, dt, nd, dev)
+    B, Ls = tagv.shape
+    if payv.shape != (B, Ls) or n_fix.numel() != 1:
+        raise ValueError("finish_group_count: inconsistent input shapes")
+    # the pass's per-read flags (bytes) and largest group ids, unused here
+    work = torch.empty((B + (B + 3) // 4,), dtype=torch.int32, device=dev)
+    rc = kernels.lib().shkk_finish_count(
+        tagv.data_ptr(), payv.data_ptr(), B, Ls, meta.rows_bits,
+        work.data_ptr() + 4 * B, work.data_ptr(), n_fix.data_ptr(),
+        kernels.stream(dev))
+    kernels.check(rc, "finish_count")
+    kernels.LAUNCHES.add("finish")
 
 
 # shared memory the block path's keys may take per block (keys + scores,
@@ -1099,28 +1174,6 @@ def probe_tags(
     return tagv, payv
 
 
-def classify_kernel_classic_packed(
-    dix: DeviceIndex,
-    thresh: torch.Tensor,
-    packed: torch.Tensor,  # u8[B, L/4]
-    vmask: torch.Tensor,  # u8[B, L/8]
-    *,
-    meta: StaticMeta,
-    max_winners: int,
-    has_rows: bool,
-):
-    """K1 -> K5 -> K3: planar reads -> (packed i32[B], winners i32[B, W],
-    best_cov i32[B], length i32[B]), bit-exact with shark_tpu's
-    classify_kernel_packed."""
-    idx_hi, idx_lo, win_valid, length = front_end(packed, vmask, meta)
-    tagv, payv = probe_tags(idx_hi, idx_lo, win_valid, dix.bf_rank, dix.pay)
-    return finish_from_tags(
-        tagv, payv, length, thresh,
-        rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta,
-        max_winners=max_winners, L=packed.shape[1] * 4, has_rows=has_rows,
-    )
-
-
 # ---------------------------------------------------------------------------
 # The classifier
 # ---------------------------------------------------------------------------
@@ -1224,6 +1277,7 @@ class Classifier:
                 table, stash, rows3, ext_mat, hmeta, self.device,
                 side=side, side_stash=side_stash,
             )
+            self._has_rows = self._hmeta.has_rows
         else:
             bf_rank, pay, rows3, ext_mat = build_device_index(index)
             self._has_rows = bool((np.diff(index.offsets) >= 3).any())
@@ -1251,29 +1305,54 @@ class Classifier:
         bases to a multiple of 8 for the planar packing; that changes no
         verdict (window positions, lengths and thresholds are those of the
         unpadded read)."""
-        codes = torch.as_tensor(codes).to(self.device)
-        B, L = codes.shape
-        if L % 8:
-            pad = torch.full((B, 8 - L % 8), INVALID, dtype=torch.uint8,
-                             device=self.device)
-            codes = torch.cat([codes, pad], dim=1)
-        return self.call_packed(*pack_codes(codes))
+        return self.call_packed(*planar(codes, self.device))
 
     def call_packed(self, packed, vmask):
         """packed u8[B, L/4] + validity u8[B, L/8] -> result tuple."""
+        return self.finish(self.tags(packed, vmask))
+
+    def tags(self, packed, vmask):
+        """K1 and the layout's probe (K2, K6 or K5): planar reads, moved to
+        this classifier's device -> (tagv, payv, length, L), the finish's
+        inputs."""
         packed = torch.as_tensor(packed).to(self.device, non_blocking=True)
         vmask = torch.as_tensor(vmask).to(self.device, non_blocking=True)
-        meta, thresh = self._geometry(packed.shape[1] * 4)
+        L = packed.shape[1] * 4
+        meta, _ = self._geometry(L)
+        idx_hi, idx_lo, win_valid, length = front_end(packed, vmask, meta)
+        dix = self.dix
         if self.probe == "classic":
-            return classify_kernel_classic_packed(
-                self.dix, thresh, packed, vmask, meta=meta,
-                max_winners=self.max_winners, has_rows=self._has_rows,
-            )
-        from shark_tpu_torch.classify.hashed import (
-            classify_kernel_hashed_packed,
-        )
+            tagv, payv = probe_tags(idx_hi, idx_lo, win_valid, dix.bf_rank,
+                                    dix.pay)
+        else:
+            from shark_tpu_torch.classify import hashed
 
-        return classify_kernel_hashed_packed(
-            self.dix, thresh, packed, vmask, meta=meta, hmeta=self._hmeta,
-            max_winners=self.max_winners,
-        )
+            if self._hmeta.xl:
+                tagv, payv = hashed.probe_xl(
+                    idx_hi, idx_lo, win_valid, dix.table, dix.side,
+                    dix.side_stash, self._hmeta)
+            else:
+                tagv, payv = hashed.probe_hashed(
+                    idx_hi, idx_lo, win_valid, dix.table, dix.stash,
+                    self._hmeta, dix.stash_rows)
+        return tagv, payv, length, L
+
+    def group_count(self, tags, n_fix) -> None:
+        """Adds the impure row-hitting reads of `tags` (one part of a batch)
+        to n_fix (i32[1] on this device): finish_group_count."""
+        tagv, payv, _, L = tags
+        finish_group_count(tagv, payv, n_fix, meta=self._geometry(L)[0],
+                           has_rows=self._has_rows)
+
+    def finish(self, tags, n_fix=None, fix_cap2=None):
+        """K3 on tags(...)'s output -> (packed i32[B], winners i32[B, W],
+        best_cov i32[B], length i32[B]), bit-exact with shark_tpu's
+        classify kernels. `n_fix`, `fix_cap2`: the whole batch's group
+        count and cap when these reads are one part of it."""
+        tagv, payv, length, L = tags
+        meta, thresh = self._geometry(L)
+        return finish_from_tags(
+            tagv, payv, length, thresh, rows3=self.dix.rows3,
+            ext_mat=self.dix.ext_mat, meta=meta,
+            max_winners=self.max_winners, L=L, has_rows=self._has_rows,
+            n_fix=n_fix, fix_cap2=fix_cap2)

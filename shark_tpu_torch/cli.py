@@ -7,13 +7,12 @@ size in GB units of 2**33 bits; -q minimum base quality; -s single-
 association mode; -t threads; -v verbose. Associations go to stdout as
 "read_id gene_id" lines.
 
-Device extras: --batch-size, --max-read-len, --backend, --sharded-bf with
---devices N (the Bloom filter sharded over N cards; more than the cards
-present is an error), --save-index/--load-index, --ssv, --resume and
---stats-json. The flags of paths not in the PyTorch port yet (--devices >
-1 without --sharded-bf, --num-hosts > 1, --backend native, --profile-dir)
-are accepted by the parser and then refused with a "not in the port yet"
-error.
+Device extras: --batch-size, --max-read-len, --backend ('' the card, cpu,
+or native: the C++ host engine with no device), --devices N (the index
+replicated on N cards, or with --sharded-bf the Bloom filter sharded over
+them; more than the cards present is an error), --save-index/--load-index,
+--ssv, --resume, --stats-json, --profile-dir, and the multi-host launch
+flags (one process per host, see parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from shark_tpu_torch.config import SharkConfig, not_ported
+from shark_tpu_torch.config import SharkConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,10 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="",
                    help="'' (default) runs on the CUDA card and fails "
                         "without one; 'cpu' runs the kernels' plain "
-                        "PyTorch versions on the host")
+                        "PyTorch versions on the host; 'native' is the "
+                        "pure-CPU C++ classify path (no device at all)")
     p.add_argument("--devices", type=int, default=1,
-                   help="device count of --sharded-bf (0 = all cards; "
-                        "without --sharded-bf only 1 is ported)")
+                   help="data-parallel card count: the index replicated "
+                        "on each, the batch split among them (default: "
+                        "1); with --sharded-bf the shard count (0 = all "
+                        "cards)")
     p.add_argument("--sharded-bf", action="store_true",
                    help="shard the Bloom filter by address range over "
                         "--devices cards (--backend cpu: one CPU shard)")
@@ -89,7 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "hashed table when it fits its budget, else xl, "
                         "else classic; xl and classic force a layout")
     p.add_argument("--profile-dir", default="",
-                   help="profiler trace directory (not ported)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "to this directory")
     p.add_argument("--compile-cache", default="~/.cache/shark_tpu/xla",
                    metavar="DIR",
                    help="accepted for parity with shark-tpu; no effect")
@@ -101,11 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write machine-readable run statistics (reads, "
                         "associations, phase seconds, reads/s) to this "
                         "path as one JSON object")
-    # multi-host launch flags of shark_tpu (not ported)
+    # multi-host launch (one process per host; see parallel/distributed.py)
     p.add_argument("--coordinator", default="",
-                   help="multi-host coordinator address (not ported)")
+                   help="torch.distributed coordinator address host:port "
+                        "(host 0 listens there)")
     p.add_argument("--num-hosts", type=int, default=1,
-                   help="total hosts in a multi-host run (only 1 is ported)")
+                   help="total hosts in the multi-host run (default: 1)")
     p.add_argument("--host-id", type=int, default=0,
                    help="this host's index in [0, num-hosts)")
     return p
@@ -148,32 +152,63 @@ def main(argv=None) -> int:
         cfg.validate()
         if not (0 <= args.host_id < args.num_hosts):
             raise ValueError("--host-id must be in [0, num-hosts)")
-        if args.num_hosts > 1:
-            raise not_ported("--num-hosts > 1", "multi-host")
-        if cfg.sharded_bf:
+        if args.num_hosts > 1 and not args.coordinator:
+            raise ValueError("--num-hosts > 1 requires --coordinator")
+        if args.num_hosts > 1 and cfg.backend == "native":
+            raise ValueError(
+                "--backend native is single-host (use --num-hosts 1)"
+            )
+        if cfg.backend != "native" and (cfg.sharded_bf or cfg.devices > 1):
             from shark_tpu_torch.parallel.mesh import make_devices
 
             make_devices(cfg.devices, "cpu" if cfg.backend == "cpu" else None)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"shark-tpu-torch: {e}\naborting...", file=sys.stderr)
         return 1
-    from shark_tpu_torch.pipeline import run_pipeline
+    if args.num_hosts > 1:
+        from shark_tpu_torch.parallel.distributed import (
+            host_suffixed,
+            initialize,
+        )
 
-    stats = run_pipeline(cfg)
-    if args.stats_json:
-        import json
+        initialize(args.coordinator, args.num_hosts, args.host_id)
+        # per-host outputs; concatenate in host order afterwards
+        # (parallel/distributed.py merge_outputs)
+        cfg.finalize_outputs()
+        cfg.out1_path = host_suffixed(cfg.out1_path, args.host_id)
+        if cfg.out2_path:
+            cfg.out2_path = host_suffixed(cfg.out2_path, args.host_id)
+        if cfg.ssv_path:
+            cfg.ssv_path = host_suffixed(cfg.ssv_path, args.host_id)
+    ok = False
+    try:
+        from shark_tpu_torch.pipeline import run_pipeline
 
-        stats = dict(stats)
-        if stats.get("classify_s"):
-            # classify_s covers only this invocation; a resumed run's
-            # n_reads includes the prior invocations' prefix
-            done_now = stats["n_reads"] - stats.get("resumed_reads", 0)
-            stats["reads_per_sec"] = round(
-                done_now / stats["classify_s"], 1
-            )
-        with open(args.stats_json, "w") as f:
-            json.dump(stats, f)
-            f.write("\n")
+        stats = run_pipeline(cfg)
+        if args.stats_json:
+            import json
+
+            path = args.stats_json
+            if args.num_hosts > 1:
+                # per-host stats, like the data outputs
+                path = host_suffixed(path, args.host_id)
+            stats = dict(stats)
+            if stats.get("classify_s"):
+                # classify_s covers only this invocation; a resumed run's
+                # n_reads includes the prior invocations' prefix
+                done_now = stats["n_reads"] - stats.get("resumed_reads", 0)
+                stats["reads_per_sec"] = round(
+                    done_now / stats["classify_s"], 1
+                )
+            with open(path, "w") as f:
+                json.dump(stats, f)
+                f.write("\n")
+        ok = True
+    finally:
+        if args.num_hosts > 1:
+            from shark_tpu_torch.parallel.distributed import shutdown
+
+            shutdown(wait=ok)
     return 0
 
 

@@ -6,10 +6,8 @@ k in [1, 31]; c in [0, 1]; bf size given in "GB" units where 1 unit equals
 2**33 bits of Bloom bit-vector (argument_parser.hpp:130-133).
 
 The fields are those of shark_tpu's SharkConfig, so a config can be built
-from either package's CLI. Options whose code path is not in the PyTorch
-port yet are rejected by validate() with NotImplementedError, never
-ignored: the replicated multi-device mode (--devices > 1 without
---sharded-bf), --backend native and --profile-dir.
+from either package's CLI. validate() refuses none of the options
+shark_tpu runs; --backend names '' (the card), 'cpu' or 'native'.
 """
 
 from __future__ import annotations
@@ -19,17 +17,6 @@ from dataclasses import dataclass
 # One "-b" unit = 2**33 bits (1 GiB of bit-vector), reference
 # argument_parser.hpp:133.
 BF_UNIT_BITS = 1 << 33
-
-NOT_PORTED = "is not in the port yet"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error every deferred option raises: what was asked for and the
-    ROADMAP.md open item that will port it."""
-    return NotImplementedError(
-        f"{what} {NOT_PORTED} (ROADMAP.md open item: {item})"
-    )
-
 
 @dataclass
 class SharkConfig:
@@ -53,17 +40,19 @@ class SharkConfig:
     max_read_len: int = 0
     max_winners: int = 16  # per-read winner-compaction width on device
     # "" = the CUDA card (cuda:0; raises when there is none); "cpu" runs
-    # every kernel's plain PyTorch version on the host
+    # every kernel's plain PyTorch version on the host; "native" classifies
+    # in the C++ host engine and touches no device at all
     backend: str = ""
-    # devices of the sharded-BF mode (0 = all cards); the replicated mode
-    # with more than one device is not ported
+    # cards of the replicated index (> 1: one copy per card, the batch
+    # split among them) or of the sharded Bloom filter (0 = all cards)
     devices: int = 1
     sharded_bf: bool = False  # shard the Bloom filter over the devices
     save_index: str = ""  # optional path to serialize the built index
     load_index: str = ""  # optional path to load a prebuilt index
     ssv_path: str = ""  # write ssv here instead of stdout (native path)
     use_native: bool = True  # use the C++ host I/O engine when available
-    profile_dir: str = ""  # not ported
+    # torch.profiler trace of the whole run (Chrome trace) into this dir
+    profile_dir: str = ""
     # Probe-path selection: "auto" takes the hashed bucket table when it
     # builds, else the xl layout, else classic (shark_tpu's rule); "xl"
     # and "classic" force a layout.
@@ -108,15 +97,10 @@ class SharkConfig:
             # group * (lookahead_depth + 2) pinned batches; shk_next also
             # guards against wrap at runtime, but fail fast here
             raise ValueError("fetch_group must be in [1, 6]")
-        if self.backend == "native":
-            raise not_ported("--backend native", "--backend native")
-        if self.backend not in ("", "cpu"):
-            raise ValueError("backend must be '' (the CUDA card) or 'cpu'")
-        if self.profile_dir:
-            raise not_ported("--profile-dir", "--profile-dir")
-        if self.devices > 1 and not self.sharded_bf:
-            raise not_ported("--devices > 1 without --sharded-bf",
-                             "multi-GPU")
+        if self.backend not in ("", "cpu", "native"):
+            raise ValueError(
+                "backend must be '' (the CUDA card), 'cpu' or 'native'"
+            )
 
     def finalize_outputs(self) -> None:
         """Apply the reference's output-path defaults

@@ -729,19 +729,36 @@ static cudaError_t resident_blocks(const void* kernel, int threads,
   return cudaSuccess;
 }
 
+// The group pass alone, for one part of a batch split over devices (a
+// replicated index): adds the part's impure row-hitting reads to *n_fix,
+// which the caller zeroes once for the whole batch, so that every part's
+// finish can take the batch's group choice (shkk_finish's n_fix_total).
+extern "C" int shkk_finish_count(const void* tagv, const void* payv, int B,
+                                 int Ls, int rb, void* flags, void* gmax,
+                                 void* n_fix, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  groups_kernel<<<grid_for((long long)B * 32, threads), threads, 0,
+                  (cudaStream_t)stream>>>(
+      (const u32*)tagv, (const u32*)payv, B, Ls, rb, (uint8_t*)flags,
+      (int32_t*)gmax, (int32_t*)n_fix);
+  return (int)cudaGetLastError();
+}
+
 // The whole finish on one stream: zero the counters (counters[0] = n_fix,
 // counters[1] = the block path's list length), the group pass when the
 // index has group ids, the warp pass over every read, then the block path
 // over the reads it listed (at most `grid` blocks: the rows of the scratch
-// buffer).
+// buffer). With n_fix_total (not null), the group choice compares that
+// count, the whole batch's, with fix_cap2 in place of this call's own.
 extern "C" int shkk_finish(
     const void* tagv, const void* payv, const void* length,
     const void* thresh, const void* rows3, int n3, int rows3_w, int D,
     const void* ext_mat, int ext_w, int B, int Ls, int L, int k,
     int pos_bits, int n_genes, int rb, int W, int has_rows, int groups,
-    void* flags, void* gmax, void* counters, int fix_cap2, int key_cap,
-    int grid, void* scratch, void* heavy, void* packed, void* winners,
-    void* best_cov, void* stream) {
+    void* flags, void* gmax, void* counters, int fix_cap2,
+    const void* n_fix_total, int key_cap, int grid, void* scratch,
+    void* heavy, void* packed, void* winners, void* best_cov, void* stream) {
   ReadsArgs a;
   a.tagv = (const u32*)tagv;
   a.payv = (const u32*)payv;
@@ -765,7 +782,8 @@ extern "C" int shkk_finish(
   a.groups = groups;
   a.flags = (const uint8_t*)flags;
   a.gmax = (const int32_t*)gmax;
-  a.n_fix = (const int32_t*)counters;
+  a.n_fix = n_fix_total ? (const int32_t*)n_fix_total
+                        : (const int32_t*)counters;
   a.fix_cap2 = fix_cap2;
   a.key_cap = key_cap;
   a.scratch = (u32*)scratch;

@@ -187,10 +187,13 @@ _SIGNATURES = {
         _I, _I,  # has_rows, groups (0/1)
         _VP, _VP, _VP, _I,  # flags, gmax, counters (n_fix, n_heavy),
         # fix_cap2
+        _VP,  # n_fix_total (or 0: this call's own count)
         _I, _I, _VP, _VP,  # key_cap, grid, scratch (or 0), heavy list
         _VP, _VP, _VP,  # packed, winners, best_cov
         _VP,  # stream
     ],
+    # tagv, payv, B, Ls, rows_bits, flags, gmax, n_fix, stream
+    "shkk_finish_count": [_VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # packed, winners, B, W, out, out_len, stream
     "shkk_pairs": [_VP, _VP, _I, _I, _VP, _L, _VP],
     # idx_hi, idx_lo, win_valid, n, table, lgB, side, side_lgB, has_side,

@@ -33,3 +33,12 @@ def make_devices(n_devices: int = 0, device=None) -> List[torch.device]:
     if n_devices > len(devs):
         raise ValueError(f"requested {n_devices} devices, have {len(devs)}")
     return devs[:n_devices]
+
+
+def norm_device(d) -> torch.device:
+    """torch.device(d), with a bare "cuda" named by its index, so that a
+    device list's repeats compare equal."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d

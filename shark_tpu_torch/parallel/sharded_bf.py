@@ -60,7 +60,7 @@ from shark_tpu_torch.classify.step import (
     to_device,
 )
 from shark_tpu_torch.index.structure import SharkIndex
-from shark_tpu_torch.parallel.mesh import make_devices
+from shark_tpu_torch.parallel.mesh import make_devices, norm_device
 
 MISS_SENTINEL = 0xFFFFFFFF
 # Shards a routing launch takes: its shared memory holds 11 ints per shard
@@ -355,13 +355,6 @@ def shard_return(back, owner, slot):
 # ---------------------------------------------------------------------------
 
 
-def _norm_device(d) -> torch.device:
-    d = torch.device(d)
-    if d.type == "cuda" and d.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return d
-
-
 class ShardedBFClassifier:
     """Classify against an index sharded by Bloom address range over
     `devices` (one per shard; a device may repeat). The batch is split
@@ -383,7 +376,7 @@ class ShardedBFClassifier:
         self.c = c
         if devices is None:
             devices = make_devices(n_devices)
-        self.devices = [_norm_device(d) for d in devices]
+        self.devices = [norm_device(d) for d in devices]
         self.n = len(self.devices)
         if not 1 <= self.n <= MAX_SHARDS:
             raise ValueError(f"{self.n} shards: 1..{MAX_SHARDS} are taken")

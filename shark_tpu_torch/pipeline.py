@@ -764,6 +764,92 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
     return stats
 
 
+def _run_native_host(cfg: SharkConfig, index: SharkIndex, timer: PhaseTimer) -> dict:
+    """--backend native: the pure-CPU serving path, with no device at all
+    (no CUDA call, no kernel). Parse/encode/emit run in the native engine
+    exactly as on the card's path; classification runs in
+    shk_host_classify worker threads against the dense index arrays with
+    oracle-exact semantics. -t maps to classify workers, the reference's
+    phase-3 threading model (main.cpp:219-223), with deterministic
+    input-order output regardless of thread count. Resumes like
+    _run_native (a <ssv>.progress sidecar after every batch)."""
+    from shark_tpu_torch.io.native import NativeStream, host_classify
+
+    progress_path, reads_done0, base_assoc, base_reads_out = _resume_state(
+        cfg
+    )
+
+    ns = NativeStream(
+        cfg.sample1_path,
+        cfg.sample2_path,
+        cfg.batch_size,
+        cfg.max_read_len,
+        cfg.min_quality,
+        packed=False,  # host classify consumes byte codes directly
+        encode_threads=max(1, min(cfg.threads - 1, 8)),
+    )
+    try:
+        ns.set_output(
+            1, cfg.ssv_path, cfg.out1_path, cfg.out2_path,
+            append=reads_done0 > 0,
+        )
+        ns.register_genes(index.gene_names)
+        timer.mark("Host classify ready")
+        warm_s = timer.elapsed()
+
+        n_reads = 0
+        _skip_resumed(ns, reads_done0)
+        while True:
+            nb = ns.next_batch()
+            if nb is None:
+                break
+            codes, slot, n = nb
+            ri, gi = host_classify(
+                index, codes, n, cfg.c, cfg.single,
+                threads=max(1, cfg.threads),
+            )
+            ns.emit(slot, ri, gi)
+            n_reads += n
+            if progress_path:
+                _write_progress(
+                    progress_path, cfg, reads_done0 + n_reads, ns.tell(),
+                    (
+                        base_assoc + int(ns.n_associations),
+                        base_reads_out + int(ns.n_reads_out),
+                    ),
+                )
+    except BaseException:
+        try:
+            ns.close()
+        except Exception:
+            pass
+        raise
+
+    timer.mark("Sample completed")
+    timer.rate("throughput", n_reads, "reads")
+    elapsed = timer.elapsed()
+    stats = {
+        "n_reads": n_reads + reads_done0,
+        "n_associations": base_assoc + int(ns.n_associations),
+        "n_reads_out": base_reads_out + int(ns.n_reads_out),
+        "n_genes": index.n_genes,
+        "elapsed_s": elapsed,
+        "warmup_s": warm_s,
+        "classify_s": elapsed - warm_s,
+        "native": True,
+        "probe": "host",
+    }
+    if reads_done0:
+        stats["resumed_reads"] = reads_done0
+    ns.close()
+    if progress_path:
+        import os
+
+        if os.path.exists(progress_path):
+            os.remove(progress_path)
+    return stats
+
+
 def load_or_build_index(cfg: SharkConfig, timer: PhaseTimer) -> SharkIndex:
     if cfg.load_index:
         index = SharkIndex.load(cfg.load_index)
@@ -932,17 +1018,47 @@ def run_pipeline(
     `classifier` reuses a warm device classifier (bench repeat passes); its
     index must match the config. `device`: None = cfg.backend's choice
     (the CUDA card, or the CPU for --backend cpu); "cpu" asks for the
-    plain PyTorch versions."""
+    plain PyTorch versions. --backend native touches no device."""
     cfg.validate()
     cfg.finalize_outputs()
     _smoke_check_inputs(cfg)
-    if device is None and cfg.backend == "cpu":
-        device = "cpu"
-    if classifier is None:
-        # fail before the index build when there is no card to run on
-        device = resolve_device(device)
+    if cfg.backend == "native":
+        device = None
+    else:
+        if device is None and cfg.backend == "cpu":
+            device = "cpu"
+        if classifier is None:
+            # fail before the index build when there is no card to run on
+            device = resolve_device(device)
     timer = PhaseTimer()
-    return _run_pipeline_inner(cfg, ssv_stream, timer, classifier, device)
+    with _profiled(cfg, device, classifier):
+        return _run_pipeline_inner(cfg, ssv_stream, timer, classifier, device)
+
+
+def _profiled(cfg: SharkConfig, device, classifier):
+    """--profile-dir: a torch.profiler profile around the run, whose Chrome
+    trace (<profile_dir>/<host>_<pid>.<time>.pt.trace.json) is written when
+    the run ends, also when it raises. It records the host's torch
+    operators, and the card's kernels and copies when the run is on the
+    card; --backend native records the host only. Else a null context."""
+    import contextlib
+
+    if not cfg.profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    dev = classifier.device if classifier is not None else device
+    activities = [ProfilerActivity.CPU]
+    if dev is not None and torch.device(dev).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(
+        activities=activities,
+        on_trace_ready=tensorboard_trace_handler(cfg.profile_dir),
+    )
 
 
 def _probe_opts(cfg: SharkConfig) -> dict:
@@ -997,6 +1113,65 @@ def _run_pipeline_inner(
         index = load_or_build_index(cfg, timer)
     index_s = timer.elapsed()
 
+    if cfg.backend == "native":
+        # pure-CPU serving path: classification in the native engine, no
+        # device anywhere (_run_native_host)
+        from shark_tpu_torch.io import native as native_mod
+
+        if not native_mod.available():
+            raise RuntimeError(
+                "--backend native requires the native engine (g++ on PATH)"
+            )
+        if ssv_stream is not None or classifier is not None:
+            raise ValueError(
+                "--backend native streams output through the native "
+                "engine; ssv_stream / device classifiers do not apply"
+            )
+        # device flags would be SILENTLY skipped by this early return; a
+        # user asking for them wants the device path, so say so
+        if cfg.sharded_bf or cfg.devices > 1:
+            raise ValueError(
+                "--backend native is the single-host pure-CPU path; "
+                "--sharded-bf/--devices require a device backend"
+            )
+        if cfg.probe != "auto":
+            print(
+                "[shark-tpu-torch] note: --probe selects a DEVICE table "
+                "layout; --backend native classifies on the CPU and "
+                "ignores it",
+                file=sys.stderr,
+            )
+        native_len = cfg.max_read_len
+        if not native_len:
+            if join_scan is None and not _regular_files(
+                cfg.sample1_path, cfg.sample2_path
+            ):
+                raise ValueError(
+                    "--backend native with non-seekable input requires "
+                    "--max-read-len (the auto-length pre-pass reads the "
+                    "sample twice)"
+                )
+            mf = join_scan() if join_scan is not None else (
+                native_mod.scan_max_fused(cfg.sample1_path, cfg.sample2_path)
+            )
+            # host classify iterates rows, so long reads only cost
+            # memory; an empty sample still needs a valid batch geometry
+            native_len = _round_len(max(mf, cfg.k), cfg.k)
+        ncfg = cfg
+        if native_len != cfg.max_read_len:
+            from dataclasses import replace
+
+            ncfg = replace(cfg, max_read_len=native_len)
+        stats = _run_native_host(ncfg, index, timer)
+        stats["index_s"] = index_s
+        stats["warmup_s"] -= index_s
+        stats["classify_s"] = stats["elapsed_s"] - index_s - stats["warmup_s"]
+        if native_len != cfg.max_read_len:
+            stats["auto_max_read_len"] = native_len
+        _join_index_save(index, timer)
+        return stats
+
+    probe = None if cfg.probe == "auto" else cfg.probe
     if classifier is not None:
         pass
     elif cfg.sharded_bf:
@@ -1008,11 +1183,21 @@ def _run_pipeline_inner(
             index, max_winners=cfg.max_winners, c=cfg.c,
             devices=make_devices(cfg.devices, device),
         )
+    elif cfg.devices > 1:
+        from shark_tpu_torch.parallel.data_parallel import (
+            DataParallelClassifier,
+        )
+
+        # the index replicated on each card, the batch split among them
+        classifier = DataParallelClassifier(
+            index, max_winners=cfg.max_winners, c=cfg.c,
+            devices=make_devices(cfg.devices, device), probe=probe,
+            probe_opts=_probe_opts(cfg),
+        )
     else:
         classifier = Classifier(
             index, max_winners=cfg.max_winners, c=cfg.c, device=device,
-            probe=None if cfg.probe == "auto" else cfg.probe,
-            probe_opts=_probe_opts(cfg),
+            probe=probe, probe_opts=_probe_opts(cfg),
         )
 
     if cfg.use_native and ssv_stream is None:

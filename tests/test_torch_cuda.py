@@ -34,7 +34,9 @@ miss), whole
 pipelines on random workloads (one with a 17000-base read), and the two
 experiment kernels (P1, P2) at small, mid and default sizes, P1 at a row
 count that is not a power of two, P2 with every bucket matching, every
-probe invalid and unaligned inputs, their refusals and their stream.
+probe invalid and unaligned inputs, their refusals and their stream, the
+replicated index over [cuda:0, cuda:0] on the hashed, xl and classic
+layouts, and --backend native on a card machine (no launch).
 Inputs are made with numpy from seeds; results must be equal, bit for
 bit.
 
@@ -434,6 +436,48 @@ def test_finish_tiers(cuda, tier):
     packed = classify_both(cuda, index, encode(reads))[0]
     grp = int(((packed >> step.PACK_GRP_SHIFT) & 1).sum())
     assert (grp == 0) == (tier == "past_cap2")
+
+
+@pytest.mark.parametrize("straddlers,count", [
+    (40, "own"), (40, "past_cap2"), (200, "own"), (200, "none")])
+def test_finish_takes_a_batch_group_count(cuda, straddlers, count):
+    """K3's group pass alone (finish_group_count) counts what the plain
+    pass counts, added to a count already there; and the finish given a
+    whole batch's count and cap (its own; past the cap where its own
+    count is within it; none where its own is past it) equals the plain
+    finish given the same."""
+    records, index = family_index()
+    rng = np.random.default_rng(3)
+    reads = (reads_from(rng, records, 300, 100, 160)
+             + reads_from(rng, records, straddlers, 30, 90))
+    clf = Classifier(index, max_winners=8, device=cuda)
+    codes = encode(reads)
+    tags = clf.tags(*step.pack_codes(torch.from_numpy(codes)))
+    tagv, payv, length, L = tags
+    meta, thresh = clf._geometry(L)
+    n_fix = torch.full((1,), 7, dtype=torch.int32, device=cuda)
+    step.finish_group_count(tagv, payv, n_fix, meta=meta, has_rows=True)
+    cpu_fix = torch.full((1,), 7, dtype=torch.int32)
+    step.finish_group_count(tagv.cpu(), payv.cpu(), cpu_fix, meta=meta,
+                            has_rows=True)
+    assert int(n_fix) == int(cpu_fix) > 7
+    batch = {"own": int(n_fix) - 7, "none": 0, "past_cap2": 10_000}[count]
+    cap = step.fix_caps(len(reads))[1]
+    over = dict(n_fix=torch.full((1,), batch, dtype=torch.int32), fix_cap2=cap)
+    args = dict(rows3=clf.dix.rows3, ext_mat=clf.dix.ext_mat, meta=meta,
+                max_winners=8, L=L, has_rows=True)
+    got = step.finish_from_tags(tagv, payv, length, thresh.to(cuda),
+                                n_fix=over["n_fix"].to(cuda), fix_cap2=cap,
+                                **args)
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in args.items()}
+    want = step.finish_from_tags_plain(tagv.cpu(), payv.cpu(), length.cpu(),
+                                       thresh.cpu(), **over, **cpu)
+    equal(got, want)
+    grp = int(((want[0] >> step.PACK_GRP_SHIFT) & 1).sum())
+    assert (grp == 0) == (batch > cap)
+    if count == "own":
+        equal(got, clf.finish(tags))
 
 
 def test_finish_impure_last_read(cuda):
@@ -1370,3 +1414,98 @@ def test_experiment_kernels_launch_on_the_current_stream(cuda):
     equal([tiles_got], [gather_tiles.gather_tiles_plain(tiles, idx)])
     equal([match_got], [resident_match.resident_match_plain(rows, want,
                                                             t128)])
+
+
+# ---------------------------------------------------------------------------
+# The replicated index on the card, and --backend native beside it
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("probe", ["hashed", "xl", "classic"])
+def test_data_parallel_on_one_card_matches_one_classifier(cuda, probe):
+    """DataParallelClassifier over [cuda:0, cuda:0] (one copy of the
+    tables, each half of the batch launched in turn): one Classifier's
+    verdicts over the whole batch, on the byte and the packed wire, the
+    same association pairs, and each kernel launched once a half (K3's
+    group pass too, where the index has group ids). On the hashed batch
+    here the first half alone would take GROUP verdicts and the whole
+    batch takes none: the halves' counts are summed on the card."""
+    from shark_tpu_torch import kernels, pipeline
+    from shark_tpu_torch.classify.step import PACK_GRP_SHIFT
+    from shark_tpu_torch.parallel.data_parallel import DataParallelClassifier
+
+    if probe == "hashed":
+        records, index = family_index(singles=20)
+        rng = np.random.default_rng(3)
+        reads = (reads_from(rng, records[:40], 600, 100, 160)
+                 + reads_from(rng, records, 424, 0, 400))
+    else:
+        genes, index = txome_like_index(17, 1 << 26)
+        rng = np.random.default_rng(8)
+        reads = [g[s:s + 90].tobytes() for g, s in zip(
+            genes[rng.integers(0, 64, size=1024)],
+            rng.integers(0, 1100, size=1024))]
+    codes = encode(reads)
+    one = Classifier(index, max_winners=8, device=cuda, probe=probe)
+    dp = DataParallelClassifier(index, max_winners=8, devices=[cuda, cuda],
+                                probe=probe)
+    assert dp.probe == one.probe == probe
+    assert dp._replicas[0] is dp._replicas[1]
+    want = one(codes)
+    if probe == "hashed":
+        def n_group(r):
+            return int(((r[0] >> PACK_GRP_SHIFT) & 1).sum())
+
+        assert n_group(want) == 0 and n_group(one(codes[:512])) > 0
+    kernels.LAUNCHES.reset()
+    got = dp(codes)
+    launched = kernels.LAUNCHES.snapshot()
+    assert all(t.device == cuda for t in got)
+    equal(got, want)
+    path = {"hashed": "probe", "xl": "probe_xl", "classic": "classic"}[probe]
+    assert launched["front"] == launched[path] == 2
+    assert launched["finish"] == (4 if dp._grouped(96) else 2)
+    packed, vmask = step.pack_codes(torch.from_numpy(codes))
+    equal(dp.call_packed(packed.numpy(), vmask.numpy()), want)
+    cfg = SharkConfig(c=0.6)
+    pairs = [pipeline._winner_pairs(cfg, index, r, len(reads), codes, 8,
+                                    groups=one.groups)
+             for r in (want, got)]
+    assert len(pairs[0][0]) > 0
+    for a, b in zip(*pairs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_backend_native_launches_nothing_on_a_card_machine(cuda, tmp_path):
+    """--backend native on a machine with a card: the same bytes as the
+    card's run, no kernel launch, and no CUDA memory taken."""
+    from shark_tpu_torch import cli, kernels
+
+    records, _ = family_index(singles=10)
+    fa = tmp_path / "g.fa"
+    fa.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), s)
+                            for n, s in records))
+    rng = np.random.default_rng(12)
+    fq = tmp_path / "r.fq"
+    fq.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, r, b"I" * len(r))
+                            for i, r in enumerate(
+                                reads_from(rng, records, 900, 0, 400))))
+    outs = {}
+    for backend in ("", "native"):
+        kernels.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        tag = backend or "gpu"
+        argv = ["-r", str(fa), "-1", str(fq), "-k", "15", "-o",
+                str(tmp_path / f"{tag}.fq"), "--ssv",
+                str(tmp_path / f"{tag}.ssv"), "--batch-size", "256"]
+        assert cli.main(argv + (["--backend", backend] if backend else [])) == 0
+        outs[tag] = [(tmp_path / f"{tag}{x}").read_bytes()
+                     for x in (".ssv", ".fq")]
+        if backend == "native":
+            assert kernels.LAUNCHES.snapshot() == {
+                n: 0 for n in kernels.KERNELS}
+            assert torch.cuda.memory_allocated() == before
+        else:
+            assert kernels.LAUNCHES.snapshot()["front"] > 0
+    assert outs["gpu"][0] and outs["native"] == outs["gpu"]

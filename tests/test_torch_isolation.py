@@ -1,12 +1,13 @@
-"""shark_tpu_torch stands alone, and says what it does not do yet.
+"""shark_tpu_torch stands alone, and runs every option shark_tpu runs.
 
 - importing it imports neither jax nor shark_tpu, and no source of the
   port (nor chip_smoke.py) imports them;
 - its C++ host engine is shark_tpu's, byte for byte;
 - with no CUDA device and no explicit request for the CPU, its entry
   points raise instead of carrying on on the CPU;
-- every option whose path is not ported raises "not in the port yet";
-- --sharded-bf asks for no more devices than there are;
+- the options the early slices of the port refused (--devices N,
+  --num-hosts N, --backend native, --profile-dir) now run;
+- --devices asks for no more devices than there are;
 - probe options are refused as shark_tpu refuses them.
 """
 
@@ -20,7 +21,7 @@ import torch
 
 from shark_tpu_torch import cli, pipeline
 from shark_tpu_torch.classify import step
-from shark_tpu_torch.config import NOT_PORTED, SharkConfig
+from shark_tpu_torch.config import SharkConfig
 from shark_tpu_torch.index.build import build_index
 from shark_tpu_torch.parallel import sharded_bf
 from shark_tpu_torch.parallel.mesh import make_devices
@@ -49,6 +50,8 @@ def test_import_leaves_out_jax_and_shark_tpu():
         "shark_tpu_torch.convert, shark_tpu_torch.kernels, "
         "shark_tpu_torch.classify.hashed, shark_tpu_torch.classify.table_cache, "
         "shark_tpu_torch.parallel.mesh, shark_tpu_torch.parallel.sharded_bf, "
+        "shark_tpu_torch.parallel.data_parallel, "
+        "shark_tpu_torch.parallel.distributed, "
         "shark_tpu_torch.experiments.gather_tiles, "
         "shark_tpu_torch.experiments.resident_match; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -129,6 +132,9 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
     valid = torch.ones((2, 3), dtype=torch.bool)
     rows = torch.zeros((4, 2), dtype=torch.uint32)
     step.probe_tags(idx, idx, valid, rows, rows)
+    n_fix = torch.zeros(1, dtype=torch.int32)
+    step.finish_group_count(idx, idx, n_fix, has_rows=True,
+                            meta=type("Meta", (), {"rows_bits": 4}))
     xl = hashed.HashedMeta(lgB=6, has_rows=False, entry16=True, slots=4,
                            xl=True, side_lgB=6, has_side=True)
     side = torch.zeros((64, 2, 8), dtype=torch.uint32)
@@ -153,26 +159,61 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--devices", "2"],
-        ["--num-hosts", "2", "--coordinator", "localhost:1234"],
+        ["--devices", "2", "--backend", "cpu"],
+        ["--num-hosts", "2", "--coordinator", "localhost:1234",
+         "--backend", "cpu"],
         ["--backend", "native"],
-        ["--profile-dir", "trace"],
+        ["--profile-dir", "trace", "--backend", "cpu"],
     ],
     ids=lambda f: f[0].lstrip("-"),
 )
-def test_deferred_flags_raise_not_ported(flags, capsys, tmp_path):
+def test_deferred_flags_raise_not_ported(flags, capsys, tmp_path, monkeypatch):
+    """The four options the early slices refused with "not in the port
+    yet" now run through the CLI and write the bytes of a plain --backend
+    cpu run: --devices 2 over two torch CPU devices ("cpu" and "cpu:0";
+    the host counts as one device to --devices, so the device list is
+    given), --num-hosts 2 as host 0 with the process group stubbed (its
+    outputs carry the .0 suffix), --backend native and --profile-dir
+    (a trace file)."""
+    from shark_tpu_torch.parallel import distributed, mesh
+
+    monkeypatch.setattr("shark_tpu_torch.config.BF_UNIT_BITS", 1 << 20)
+    monkeypatch.chdir(tmp_path)  # the trace directory is relative
+    two = [torch.device("cpu"), torch.device("cpu", 0)]
+    for mod in (mesh, pipeline):
+        monkeypatch.setattr(mod, "make_devices", lambda n, d=None: two[:n])
+    joined = []
+    monkeypatch.setattr(distributed, "initialize",
+                        lambda *a: joined.append(a))
+    monkeypatch.setattr(distributed, "shutdown", lambda wait=True: None)
+    gene = b"ACGTTGCAAGCTTCGAGGATCCTTAGGCATGCAAGTCGACCTGCAGGAATTCCCGGGTAC"
     fa = tmp_path / "g.fa"
     fq = tmp_path / "r.fq"
-    fa.write_bytes(b">g\nACGT\n")
-    fq.write_bytes(b"@r\nACGT\n+\nIIII\n")
-    rc = cli.main(["-r", str(fa), "-1", str(fq), *flags])
-    assert rc == 1
-    assert NOT_PORTED in capsys.readouterr().err
+    fa.write_bytes(b">g\n" + gene + b"\n")
+    fq.write_bytes(b"@r\n" + gene[5:50] + b"\n+\n" + b"I" * 45 + b"\n")
+
+    def run(tag, extra):
+        assert cli.main(["-r", str(fa), "-1", str(fq), "-k", "15",
+                         "--batch-size", "8", "-o", str(tmp_path / f"{tag}.fq"),
+                         "--ssv", str(tmp_path / f"{tag}.ssv"), *extra]) == 0
+        sfx = ".0" if "--num-hosts" in extra else ""
+        return [(tmp_path / f"{tag}.{ext}{sfx}").read_bytes()
+                for ext in ("ssv", "fq")]
+
+    want = run("plain", ["--backend", "cpu"])
+    assert want[0] == b"r g\n"
+    assert run("flag", flags) == want
+    assert "not in the port yet" not in capsys.readouterr().err
+    if "--num-hosts" in flags:
+        assert joined == [("localhost:1234", 2, 0)]
+    if "--profile-dir" in flags:
+        assert list((tmp_path / "trace").glob("*.pt.trace.json"))
 
 
 def test_sharded_devices_past_the_count_raise(capsys, tmp_path):
-    """--devices N is as strict as shark_tpu's make_mesh: more devices
-    than there are is an error (the CPU counts as one device)."""
+    """--devices N, sharded or replicated, is as strict as shark_tpu's
+    make_mesh: more devices than there are is an error (the CPU counts as
+    one device)."""
     with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         make_devices(2, "cpu")
     assert make_devices(0, "cpu") == make_devices(1, "cpu") == [
@@ -181,15 +222,17 @@ def test_sharded_devices_past_the_count_raise(capsys, tmp_path):
     fq = tmp_path / "r.fq"
     fa.write_bytes(b">g\nACGT\n")
     fq.write_bytes(b"@r\nACGT\n+\nIIII\n")
-    rc = cli.main(["-r", str(fa), "-1", str(fq), "--sharded-bf", "--devices",
-                   "2", "--backend", "cpu"])
-    assert rc == 1
-    assert "requested 2 devices, have 1" in capsys.readouterr().err
-    cfg = SharkConfig(fasta_path=str(fa), sample1_path=str(fq),
-                      out1_path=str(tmp_path / "o.fq"), sharded_bf=True,
-                      devices=3, backend="cpu")
-    with pytest.raises(ValueError, match="requested 3 devices"):
-        pipeline.run_pipeline(cfg)
+    for flags in (["--sharded-bf", "--devices", "2"], ["--devices", "2"]):
+        rc = cli.main(["-r", str(fa), "-1", str(fq), *flags, "--backend",
+                       "cpu"])
+        assert rc == 1
+        assert "requested 2 devices, have 1" in capsys.readouterr().err
+    for sharded in (True, False):
+        cfg = SharkConfig(fasta_path=str(fa), sample1_path=str(fq),
+                          out1_path=str(tmp_path / "o.fq"), sharded_bf=sharded,
+                          devices=3, backend="cpu")
+        with pytest.raises(ValueError, match="requested 3 devices"):
+            pipeline.run_pipeline(cfg)
 
 
 @pytest.mark.parametrize("probe", [None, "hashed", "classic"])
