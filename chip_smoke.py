@@ -99,11 +99,26 @@ Phases, each printing its lines; any failure exits non-zero:
    last (and against classify_s); (l) (c)'s pairs split in two at a pair
    boundary, two CLI processes at once on the card (--coordinator
    localhost:<free port> --num-hosts 2 --host-id 0|1, each with a
-   timeout), whose parts merged in host order are (c)'s bytes.
+   timeout), whose parts merged in host order are (c)'s bytes; (n)
+   bench.py's quality-masked workload: (a)'s reads with bench.py's
+   quality profile (~3% of bases under q20) and -q 10, against a
+   --backend cpu -q 10 run on the first 20k reads and the oracle, with
+   the reads' qualities and the mask, on 2000. Then (m) the soak's fixed
+   seeds (SOAK_SEEDS) of tests/test_torch_fuzz.py's run_seed on the card:
+   each seed's random workload (k 11-17, paired or not, gzip, CRLF,
+   lowercase, Ns, reads shorter than k, -q 0 or 10) through the native
+   engine and the Python I/O on the seed's layout (auto, classic or xl),
+   --backend native, --backend cpu and its extra path (8 shards on the
+   card with a small routing cap, or the index replicated over [cuda:0,
+   cuda:0]), every output equal to the oracle's ssv and to the other
+   runs' FASTQs, each device run's layout kernels launched, and the ties
+   pass (every gene written two or three times: K4 and GROUP verdicts);
+   the seeds together cover every layout, both extra paths, reprobe,
+   pairs, gzip, -q 10, K4 and GROUP verdicts.
    The launch counters are zeroed before each run and read after it:
-   (a)-(c) and (h) launch the hashed path's kernels, (d) and (i) the xl
-   path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
-   (a)'s exactly, (j) none;
+   (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
+   xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
+   (a)'s exactly, (j) none, (m) every classify kernel;
 5. the port's counterparts of the two Pallas experiments, through their
    entry points at their default sizes (shark_tpu_torch.experiments:
    gather_tiles.main, 2^20 random 512-byte tiles of a 1 GiB table;
@@ -118,7 +133,7 @@ Phases, each printing its lines; any failure exits non-zero:
    launch these two kernels.
 
 The last lines are the kernels' JSON record (launches summed over
-(a)-(l) and phase 5), the nvidia-smi line, and
+(a)-(n) and phase 5), the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
 (a first check of new kernels), and prints no result line. --out DIR also
 writes the kernels' record and the end-to-end stats there.
@@ -194,12 +209,23 @@ PATH_KERNELS = {
     "classic": ("front", "classic", "finish"),
     "sharded": ("front", "shard_route", "shard_probe", "shard_return",
                 "finish"),
+    # (m): every layout over its seeds (run_seed checks each run's own)
+    "soak": ("front", "probe", "probe_xl", "classic", "shard_route",
+             "shard_probe", "shard_return", "finish", "pairs"),
     "gather_tiles": ("gather_tiles",),
     "resident_match": ("resident_match",),
 }
 PATH_ONLY = ("probe", "probe_xl", "classic", "shard_route", "shard_probe",
              "shard_return", "gather_tiles", "resident_match")
 SHARDS = 8
+# (m)'s seeds of tests/test_torch_fuzz.py: hashed (0, 21), xl (2, 5, 10,
+# 11, 23) and classic (4, 7, 8) layouts; 8 shards (0, 2, 4, 7; reprobe
+# fires on 2 and 4), replicated (8, 10, 21, 23); paired, gzip, minq 10
+# and k = 11, 15, 17 among them; the ties pass's GROUP verdicts on 4, 5
+# and 21 (on the CPU)
+SOAK_SEEDS = (0, 2, 4, 5, 7, 8, 10, 11, 21, 23)
+SOAK_COVERS = ("hashed", "xl", "classic", "sharded", "replicated", "reprobe",
+               "paired", "gz", "minq10", "tie_pairs", "groups")
 CARD = torch.device("cuda", 0)  # the replicated runs' device, twice
 
 
@@ -271,6 +297,15 @@ def cut_reads(rng, genes, gidx, starts):
                                  for g, s in zip(gidx, starts)]))
 
 
+def q10_quals(rng, n):
+    """bench.py's quality profile (:176-183), Phred+33 uint8 [n, READ_LEN]:
+    ~97% of bases q30..40, ~3% q2..19."""
+    q = rng.integers(30, 41, size=(n, READ_LEN))
+    low = rng.random((n, READ_LEN)) < 0.03
+    q[low] = rng.integers(2, 20, size=int(low.sum()))
+    return (q + 33).astype(np.uint8)
+
+
 def panel_reads(rng, genes, n):
     gidx = rng.integers(0, len(genes), size=n)
     starts = rng.integers(0, len(genes[0]) - READ_LEN, size=n)
@@ -303,16 +338,19 @@ def write_fasta(path, genes, prefix):
             f.write(b">%s%05d\n%s\n" % (prefix, g, seq.tobytes()))
 
 
-def write_fastq(path, reads, prefix: bytes):
-    """Fixed-width records @<prefix><7 digits>, quality 'I' throughout."""
+def write_fastq(path, reads, prefix: bytes, quals=None):
+    """Fixed-width records @<prefix><7 digits>, with the given quality
+    bytes (uint8 [n, READ_LEN]) or 'I' throughout."""
     n, rl = reads.shape
+    if quals is None:
+        quals = np.full((n, rl), ord("I"), np.uint8)
     head = np.frombuffer(
         b"".join(b"@%s%07d\n" % (prefix, i) for i in range(n)), np.uint8
     ).reshape(n, -1)
     rec = np.concatenate([
         head, reads, np.full((n, 1), ord("\n"), np.uint8),
         np.frombuffer(b"+\n", np.uint8)[None, :].repeat(n, 0),
-        np.full((n, rl), ord("I"), np.uint8),
+        quals,
         np.full((n, 1), ord("\n"), np.uint8),
     ], axis=1)
     with open(path, "wb") as f:
@@ -1618,9 +1656,10 @@ def run_cli(argv):
 
 
 def write_workload(d, genes, prefix, reads1, reads2=None, fa=None,
-                   subsets=(("head", N_CPU_CHECK),)):
+                   subsets=(("head", N_CPU_CHECK),), quals1=None):
     """The FASTA (unless given) and the FASTQ files of one workload: all
-    reads, and the first n of each named subset. Returns (fa, files)."""
+    reads, and the first n of each named subset; mate 1 with `quals1`
+    when given. Returns (fa, files)."""
     os.makedirs(d, exist_ok=True)
     if fa is None:
         fa = os.path.join(d, "genes.fa")
@@ -1628,11 +1667,13 @@ def write_workload(d, genes, prefix, reads1, reads2=None, fa=None,
     rp = b"p" if reads2 is not None else b"r"
     files = {}
     for tag, sub in (("all", None),) + tuple(subsets):
-        for mate, reads in (("1", reads1), ("2", reads2)):
+        for mate, reads, quals in (("1", reads1, quals1),
+                                   ("2", reads2, None)):
             if reads is None:
                 continue
             path = os.path.join(d, f"{tag}_{mate}.fq")
-            write_fastq(path, reads if sub is None else reads[:sub], rp)
+            write_fastq(path, reads[:sub], rp,
+                        None if quals is None else quals[:sub])
             files[tag, mate] = path
     return fa, files
 
@@ -1666,19 +1707,29 @@ def same_prefix(d, name, run, ref, n_first, paired):
     return got
 
 
-def oracle_agrees(name, oracle, got, reads1, reads2=None):
-    """The first N_ORACLE_CHECK reads' genes equal the oracle's."""
+def oracle_agrees(name, oracle, got, reads1, reads2=None, quals1=None,
+                  minq=0):
+    """The first N_ORACLE_CHECK reads' genes equal the oracle's, with the
+    reads' qualities (quals1, else 'I' throughout) masked at minq.
+    Returns (reads checked, how many of their verdicts the mask
+    changes)."""
     from shark_tpu_torch.classify.oracle import classify_read, fuse_pair
 
+    changed = 0
     for i in range(N_ORACLE_CHECK):
-        r1 = (f"{i}", reads1[i].tobytes(), b"I" * READ_LEN)
+        q1 = b"I" * READ_LEN if quals1 is None else quals1[i].tobytes()
+        r1 = (f"{i}", reads1[i].tobytes(), q1)
         r2 = None if reads2 is None else (f"{i}", reads2[i].tobytes(),
                                           b"I" * READ_LEN)
-        wins, _, _ = classify_read(oracle, fuse_pair(r1, r2, 0), C, False)
+        wins, _, _ = classify_read(oracle, fuse_pair(r1, r2, minq), C,
+                                   False)
         want = [oracle.gene_names[g] for g in wins]
         need(got.get(i, []) == want,
              f"{name}: read {i}: GPU {got.get(i, [])} != oracle {want}")
-    return N_ORACLE_CHECK
+        if minq:
+            changed += classify_read(oracle, fuse_pair(r1, r2, 0), C,
+                                     False)[0] != wins
+    return N_ORACLE_CHECK, changed
 
 
 def say_e2e(name, stats, note):
@@ -1691,29 +1742,38 @@ def say_e2e(name, stats, note):
         f"wall_s={stats['wall_s']:.2f}; {note}")
 
 
-def e2e(work, name, genes, prefix, reads1, reads2=None):
+def e2e(work, name, genes, prefix, reads1, reads2=None, quals1=None,
+        minq=0, note=""):
     """One end-to-end phase on a panel: GPU run, --backend cpu run on the
     first N_CPU_CHECK reads, oracle agreement on the first
-    N_ORACLE_CHECK."""
+    N_ORACLE_CHECK; with -q minq on every run when minq > 0."""
     from shark_tpu_torch.classify.oracle import build_oracle_index
 
     d = os.path.join(work, name)
-    fa, files = write_workload(d, genes, prefix, reads1, reads2)
+    fa, files = write_workload(d, genes, prefix, reads1, reads2,
+                               quals1=quals1)
+    q = ["-q", str(minq)] if minq else []
     t0 = time.perf_counter()
-    stats = run_tag(d, fa, files, "all", "all_gpu")
+    stats = run_tag(d, fa, files, "all", "all_gpu", q)
     stats["wall_s"] = time.perf_counter() - t0
     need(stats["n_reads"] == len(reads1), f"{name}: read count {stats}")
     need(stats["probe"] == "hashed", f"{name}: probe {stats['probe']}")
-    run_tag(d, fa, files, "head", "head_cpu", ["--backend", "cpu"])
+    run_tag(d, fa, files, "head", "head_cpu", ["--backend", "cpu", *q])
     got = same_prefix(d, name, "all_gpu", "head_cpu", N_CPU_CHECK,
                       reads2 is not None)
     need(len(got) > N_CPU_CHECK // 4, f"{name}: only {len(got)} reads emitted")
     oracle = build_oracle_index(
         [(f"{prefix.decode()}{g:05d}", s.tobytes()) for g, s in enumerate(genes)],
         K, BF_GB << 33)
-    agree = oracle_agrees(name, oracle, got, reads1, reads2)
+    agree, changed = oracle_agrees(name, oracle, got, reads1, reads2, quals1,
+                                   minq)
+    if minq:
+        need(changed > 0, f"{name}: -q {minq} changes no oracle verdict")
+        stats["mask_changed_oracle_verdicts"] = changed
+        note = (f" (the mask changes {changed} of their verdicts)" + note)
     say_e2e(name, stats, f"GPU == --backend cpu on {N_CPU_CHECK} reads "
-                         f"(ssv, FASTQ); {agree} reads agree with the oracle")
+                         f"(ssv, FASTQ); {agree} reads agree with the oracle"
+                         + note)
     return stats
 
 
@@ -1752,8 +1812,8 @@ def e2e_txome(d, fa, reads, launches):
     need(cpu["probe"] == "xl", f"txome --backend cpu: probe {cpu['probe']}")
     got = same_prefix(d, "txome", "all_gpu", "head_cpu", N_CPU_CHECK, False)
     need(len(got) > N_CPU_CHECK // 4, f"txome: only {len(got)} reads emitted")
-    agree = oracle_agrees("txome", _ShimIndex(SharkIndex.load(idx)), got,
-                          reads)
+    agree, _ = oracle_agrees("txome", _ShimIndex(SharkIndex.load(idx)), got,
+                             reads)
     say_e2e("txome", stats, f"xl tables {json.dumps(cached['hmeta'])}; GPU "
             f"== --backend cpu --load-index (xl table cache) on "
             f"{N_CPU_CHECK} reads (ssv, FASTQ); {agree} reads agree with "
@@ -1925,6 +1985,68 @@ def e2e_native_backend(work):
         f"launched; its bytes equal (a)'s --backend cpu run on its "
         f"{N_CPU_CHECK} reads")
     return stats
+
+
+def e2e_soak(work, launches):
+    """(m) tests/test_torch_fuzz.py's run_seed on cuda:0 for SOAK_SEEDS:
+    each seed's random workload through the device path (native engine,
+    Python I/O), --backend native, --backend cpu, its extra path and the
+    ties pass, every output equal to the oracle's ssv and to the other
+    modes' FASTQs, each device run's layout kernels launched. The seeds
+    together must cover SOAK_COVERS; their launches go to
+    launches["m"]."""
+    import importlib.util
+    import traceback
+
+    from shark_tpu_torch import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz", os.path.join(HERE, "tests", "test_torch_fuzz.py"))
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    say("soak (m) seeds: " + " ".join(map(str, SOAK_SEEDS)))
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    seen = set()
+    t_phase = time.perf_counter()
+    for seed in SOAK_SEEDS:
+        d = os.path.join(work, "soak", str(seed))
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        try:
+            r = fuzz.run_seed(d, seed, CARD)
+        except Exception as e:
+            traceback.print_exc()
+            raise SmokeFailure(f"soak (m): seed {seed}: {type(e).__name__}: "
+                               f"{e}") from e
+        shutil.rmtree(d)
+        for name, n in r["launches"].items():
+            total[name] += n
+        extra = "+".join(r["extras"]) or "none"
+        seen |= {r["layout"], *r["extras"]}
+        seen |= {tag for tag, on in (("reprobe", r["reprobe"]),
+                                     ("paired", r["paired"]),
+                                     ("gz", r["gz"]),
+                                     ("minq10", r["minq"] == 10),
+                                     ("tie_pairs", r["tie_pairs"]),
+                                     ("groups", r["group_rows"])) if on}
+        say(f"soak (m) seed {seed}: ok layout={r['layout']} extra={extra} "
+            f"reprobe={'yes' if r['reprobe'] else 'no'} k={r['k']} "
+            f"paired={int(r['paired'])} gz={int(r['gz'])} minq={r['minq']} "
+            f"reads={r['n_reads']} assoc={r['associations']} "
+            f"ties: K4 {r['tie_pairs']} group_rows {r['group_rows']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    missing = [c for c in SOAK_COVERS if c not in seen]
+    need(not missing, f"soak (m): the seeds cover none of {missing}")
+    launches["m"] = ("soak", total)
+    secs = time.perf_counter() - t_phase
+    say(f"soak (m): {len(SOAK_SEEDS)} seeds, 0 differences, {secs:.1f} s; "
+        f"each equals the oracle's ssv and the other modes' FASTQs through "
+        f"the native engine, the Python I/O, --backend native, --backend "
+        f"cpu, its extra path and the ties pass, each device run launching "
+        f"its layout's kernels")
+    return {"seeds": list(SOAK_SEEDS), "seconds": secs}
 
 
 def trace_busy(trace_dir):
@@ -2245,8 +2367,8 @@ def main() -> int:
         e2e_stats = {}
         launches = {}
         kernels.LAUNCHES.reset()
-        e2e_stats["panel"] = e2e(work, "panel", pgenes, b"GENE",
-                                 panel_reads(rng, pgenes, N_PANEL_READS))
+        preads = panel_reads(rng, pgenes, N_PANEL_READS)
+        e2e_stats["panel"] = e2e(work, "panel", pgenes, b"GENE", preads)
         a = kernels.LAUNCHES.snapshot()
         e2e_stats["homolog"] = e2e(work, "homolog", hgenes, b"H",
                                    homolog_reads(rng, hgenes, N_HOMOLOG_READS))
@@ -2260,9 +2382,22 @@ def main() -> int:
         e2e_stats["profiled_panel"] = e2e_profiled_panel(
             work, N_PANEL_READS, a, launches, args.out)
         e2e_stats["multihost"] = e2e_multihost(work, N_PAIRS)
+        # (n) bench.py's -q 10 workload: (a)'s reads with its quality
+        # profile
+        quals = q10_quals(np.random.default_rng(10), N_PANEL_READS)
+        kernels.LAUNCHES.reset()
+        e2e_stats["q10"] = e2e(
+            work, "q10", pgenes, b"GENE", preads, quals1=quals, minq=10,
+            note=f" (-q 10 masks {100 * (quals < 43).mean():.2f}% of bases; "
+                 f"bench.py's quality profile); {smi}")
+        launches["n"] = ("panel", kernels.LAUNCHES.snapshot())
+        del preads, quals
         e2e_stats.update(e2e_txome(
             tx_dir, tx_fa, panel_reads(np.random.default_rng(2027), tgenes,
                                        N_TXOME_READS), launches))
+        gc.collect()
+        torch.cuda.empty_cache()
+        e2e_stats["soak"] = e2e_soak(work, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry
@@ -2284,7 +2419,7 @@ def main() -> int:
                      f"the {path} path launched the {name} kernel")
     total = {name: sum(c[name] for _, c in launches.values())
              for name in KERNEL_INFO}
-    say(f"launches over (a)-(l) and phase 5: {json.dumps(total)} (hashed "
+    say(f"launches over (a)-(n) and phase 5: {json.dumps(total)} (hashed "
         f"path after (a): {json.dumps(a)}, after (b): {json.dumps(b)})")
 
     kernels_line = {"kernels": []}

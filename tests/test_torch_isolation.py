@@ -1,7 +1,8 @@
 """shark_tpu_torch stands alone, and runs every option shark_tpu runs.
 
 - importing it imports neither jax nor shark_tpu, and no source of the
-  port (nor chip_smoke.py) imports them;
+  port (nor chip_smoke.py, nor scripts/fuzz_soak_torch.py and the seed
+  body it loads) imports them;
 - its C++ host engine is shark_tpu's, byte for byte;
 - with no CUDA device and no explicit request for the CPU, its entry
   points raise instead of carrying on on the CPU;
@@ -37,6 +38,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "scripts", "fuzz_soak_torch.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -60,6 +62,25 @@ def test_import_leaves_out_jax_and_shark_tpu():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_soak_and_its_seed_body_load_without_jax():
+    """scripts/fuzz_soak_torch.py and the per-seed body it loads by path
+    (tests/test_torch_fuzz.py, which chip_smoke.py loads too) import
+    neither jax nor shark_tpu: the card machine has no jax."""
+    code = (
+        "import importlib.util, sys\n"
+        "for name, path in (('soak', 'scripts/fuzz_soak_torch.py'), "
+        "('body', 'tests/test_torch_fuzz.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'shark_tpu')); print(bad); sys.exit(bool(bad))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stdout + out.stderr
 
 
