@@ -114,7 +114,11 @@ Phases, each printing its lines; any failure exits non-zero:
    runs' FASTQs, each device run's layout kernels launched, and the ties
    pass (every gene written two or three times: K4 and GROUP verdicts);
    the seeds together cover every layout, both extra paths, reprobe,
-   pairs, gzip, -q 10, K4 and GROUP verdicts.
+   pairs, gzip, -q 10, K4 and GROUP verdicts. Last, (o) bench_gpu.py
+   --workload panel in a process of its own at 50k reads (its comparator,
+   passes, --backend native, device-only batch, gather ceiling and the
+   re-visit on the saved index and its probe-table cache), whose line
+   must hold panel_exact true; its launches are its own process's.
    The launch counters are zeroed before each run and read after it:
    (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
    xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
@@ -162,6 +166,7 @@ K, C, BF_GB = 17, 0.6, 1
 READ_LEN = 100
 N_PANEL_READS, N_HOMOLOG_READS, N_PAIRS = 500_000, 100_000, 50_000
 N_TXOME_READS, N_CLASSIC_READS = 500_000, 100_000
+N_BENCH_READS = 50_000  # (o): bench_gpu.py's panel, trimmed
 TXOME_GENES = 50_000
 N_CPU_CHECK, N_ORACLE_CHECK = 20_000, 2_000
 SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
@@ -2049,6 +2054,44 @@ def e2e_soak(work, launches):
     return {"seeds": list(SOAK_SEEDS), "seconds": secs}
 
 
+def e2e_bench_gpu(work, n_reads=N_BENCH_READS, timeout_s=180):
+    """(o) bench_gpu.py --workload panel in a process of its own, its read
+    count trimmed to `n_reads` (and its pairs, which the panel does not
+    run, to 1000) and its files under `work`: a wiring check of the port's
+    bench on the card (its comparator build and passes, --backend native,
+    the device-only batch, the gather ceiling, the re-visit on the saved
+    index and its probe-table cache). Its line must hold panel_exact
+    true."""
+    cache = os.path.join(work, "bench_gpu")
+    code = ("import sys, bench_gpu as b; b.CACHE = sys.argv[1]; "
+            "b.N_READS = int(sys.argv[2]); b.N_PAIRS = 1000; "
+            "sys.exit(b.main(['--workload', 'panel']))")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run([sys.executable, "-c", code, cache, str(n_reads)],
+                           cwd=HERE, env=env, capture_output=True, text=True,
+                           timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"bench_gpu (o): no line in {timeout_s} s") from e
+    secs = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        line = None
+    if p.returncode != 0 or not line or line.get("panel_exact") is not True:
+        sys.stderr.write(p.stderr[-4000:])
+        raise SmokeFailure(f"bench_gpu (o): exit {p.returncode}, line "
+                           f"{lines[-1] if lines else None}")
+    need(line.get("native_cpu_exact") is True,
+         f"bench_gpu (o): --backend native inexact: {line}")
+    shutil.rmtree(cache, ignore_errors=True)
+    say(f"bench_gpu (o): {n_reads} panel reads in {secs:.1f} s, exit 0, "
+        f"panel_exact true; its line: {json.dumps(line)}")
+    return {"seconds": secs, "line": line}
+
+
 def trace_busy(trace_dir):
     """The card's busy share from a torch.profiler Chrome trace: the union
     of its kernel records (and of kernels, copies and memsets) over the
@@ -2398,6 +2441,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         e2e_stats["soak"] = e2e_soak(work, launches)
+        e2e_stats["bench_gpu"] = e2e_bench_gpu(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry

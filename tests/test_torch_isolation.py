@@ -3,6 +3,8 @@
 - importing it imports neither jax nor shark_tpu, and no source of the
   port (nor chip_smoke.py, nor scripts/fuzz_soak_torch.py and the seed
   body it loads) imports them;
+- bench_gpu.py, the port's bench, imports and loads neither them nor
+  bench.py or bench/, also while it runs;
 - its C++ host engine is shark_tpu's, byte for byte;
 - with no CUDA device and no explicit request for the CPU, its entry
   points raise instead of carrying on on the CPU;
@@ -14,6 +16,7 @@
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -107,6 +110,55 @@ def test_sources_import_no_jax_and_no_shark_tpu():
             assert not bad, f"{path}:{node.lineno} imports {bad}"
         seen += 1
     assert seen > 20
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, "." * node.level + (node.module or "")
+
+
+def test_bench_gpu_source_imports_no_reference():
+    path = os.path.join(ROOT, "bench_gpu.py")
+    names = list(_imported_modules(path))
+    assert any(n.startswith("shark_tpu_torch") for _, n in names)
+    for line, name in names:
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "shark_tpu", "bench", ""), (
+            f"bench_gpu.py:{line} imports {name}")
+    with open(path) as f:
+        src = f.read()
+    assert "import_module" not in src and "spec_from_file_location" not in src
+
+
+def test_bench_gpu_run_loads_no_jax_shark_tpu_or_bench(tmp_path):
+    """A tiny panel run of bench_gpu.main (device="cpu", the comparator
+    and the C++ engine built) leaves no jax, shark_tpu or bench module
+    loaded."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed for the comparator and the C++ engine")
+    code = (
+        "import sys\n"
+        "import bench_gpu as b\n"
+        "from shark_tpu_torch import config\n"
+        "config.BF_UNIT_BITS = 1 << 22\n"
+        "b.CACHE = sys.argv[1]\n"
+        "b.N_GENES, b.N_READS, b.N_PAIRS, b.BATCH = 20, 500, 100, 256\n"
+        "rc = b.main(['--workload', 'panel'], device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'shark_tpu', 'bench'))\n"
+        "print(bad); sys.exit(rc or bool(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=240, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_native_engine_source_is_shark_tpu_s():
