@@ -52,10 +52,12 @@ the line; so does a run without a CUDA card, whose line holds "error".
 <wl>_device_ms is one resident batch of 65536 reads through the warm
 classifier (call_packed and the fetch of its packed verdicts to the host,
 best of 5): the card's share without the host stream or the comparator.
-pct_gather_ceiling holds the panel's probes/s against
-torch.index_select's random-row rate on a u32[2^19, 8] table (with the
-sum of the rows, as bench.py's jnp.take; gather_ceiling_ms gives each
-part's time).
+pct_gather_ceiling holds the panel's probes/s against the card's
+random-row rate on a u32[2^19, 8] table: the better of
+torch.index_select with the sum of the rows (as bench.py's jnp.take;
+gather_ceiling_ms gives each part's time) and the bare 32-byte row
+gather of shark_tpu_torch/floors.py (gather_ceiling_bare_ms);
+gather_ceiling_by names the one that set it.
 
 Everything it writes goes under build/bench_gpu/, where the workloads, the
 saved indexes and their probe-table caches (7.2 GB) stay for warm
@@ -83,7 +85,7 @@ import traceback
 import numpy as np
 import torch
 
-from shark_tpu_torch import config
+from shark_tpu_torch import config, floors
 from shark_tpu_torch.classify import table_cache
 from shark_tpu_torch.classify.oracle import classify_read
 from shark_tpu_torch.classify.step import Classifier
@@ -324,20 +326,33 @@ def settle(index=None) -> None:
 
 def measure_gather_ceiling(device: torch.device):
     """Rows/s of the hashed probe table's gather shape on `device`
-    (bench.py:70-103): u32[2^19, 8] bucket rows, one batch of probe
-    windows' random row indices (seed 7), torch.index_select and a sum,
-    less the time of summing the indices alone; best of 3, CUDA events on
-    the card. A library gather: a measurement, not a kernel of the port.
-    Returns (rows/s, the best ms of each part: the gather and sum, the
-    index sum, index_select alone and the sum of its rows alone)."""
+    (bench.py:70-103): u32[2^19, 8] bucket rows and one batch of probe
+    windows' random row indices (seed 7), gathered two ways, best of 3
+    each (CUDA events on the card): torch.index_select and a sum of the
+    rows, less the time of summing the indices alone, as bench.py's
+    jnp.take; and the bare 32-byte row gather of
+    shark_tpu_torch/floors.py, each row folded to one word, held equal to
+    its plain version first: the card's random-row rate without the
+    library's overhead. The ceiling is the better of the two rates, as
+    bench.py:679-681 keeps the best of its measurements. Measurements, not
+    kernels of the port. Returns (rows/s, index_select's best ms by part:
+    the gather and sum, the index sum, index_select alone and the sum of
+    its rows alone; the bare gather's best ms; "bare_gather32" or
+    "index_select", whichever set the ceiling)."""
     n_idx = BATCH * (MAX_LEN - K + 1)
     rng = np.random.default_rng(7)
-    # the table's u32 words as int32 (the same bytes): index_select and
-    # sum take no uint32 on every device
-    table = torch.zeros((GATHER_ROWS, 8), dtype=torch.int32, device=device)
     idx = torch.from_numpy(
         rng.integers(0, GATHER_ROWS, size=n_idx, dtype=np.int64)
         .astype(np.int32)).to(device)
+    # the table's u32 words as int32 (the same bytes): index_select and
+    # sum take no uint32 on every device
+    table = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, size=(GATHER_ROWS, 8), dtype=np.int32)).to(
+            device)
+    if not torch.equal(floors.rows(table, idx, 32),
+                       floors.rows_plain(table, idx, 32)):
+        raise RuntimeError("the bare 32-byte gather disagrees with its "
+                           "plain version")
 
     def gather():
         return torch.index_select(table, 0, idx).sum(0)
@@ -362,14 +377,23 @@ def measure_gather_ceiling(device: torch.device):
     parts = {"index_select_sum": gather, "idx_sum": floor,
              "index_select": lambda: torch.index_select(table, 0, idx),
              "rows_sum": lambda: rows.sum(0)}
-    for fn in parts.values():  # warm
+
+    def bare():
+        return floors.rows(table, idx, 32)
+
+    for fn in (*parts.values(), bare):  # warm
         fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     best = {name: min(seconds(fn) for _ in range(3))
             for name, fn in parts.items()}
+    bare_s = min(seconds(bare) for _ in range(3))
     dt = max(best["index_select_sum"] - best["idx_sum"], 1e-9)
-    return n_idx / dt, {k: round(1e3 * v, 4) for k, v in best.items()}
+    rates = {"index_select": n_idx / dt,
+             "bare_gather32": n_idx / max(bare_s, 1e-9)}
+    by = max(rates, key=rates.get)
+    return (rates[by], {k: round(1e3 * v, 4) for k, v in best.items()},
+            round(1e3 * bare_s, 4), by)
 
 
 def card_name() -> str:
@@ -601,6 +625,8 @@ class Main:
         self.best = {}
         self.ceiling = 0.0
         self.ceiling_ms = None
+        self.ceiling_bare_ms = None
+        self.ceiling_by = None
 
     def inputs(self, wl: str):
         return {
@@ -640,10 +666,12 @@ class Main:
         prefix = "" if wl == "panel" else f"{wl}_"
         if wl == "panel":
             with b.stage("gather_ceiling"):
-                c, parts = measure_gather_ceiling(b.device)
-            log(f"measured gather ceiling: {c / 1e6:.1f}M rows/s {parts}")
+                c, parts, bare_ms, by = measure_gather_ceiling(b.device)
+            log(f"measured gather ceiling: {c / 1e6:.1f}M rows/s ({by}); "
+                f"index_select {parts}, bare gather {bare_ms} ms")
             if c > self.ceiling:
                 self.ceiling, self.ceiling_ms = c, parts
+                self.ceiling_bare_ms, self.ceiling_by = bare_ms, by
             b.out.update(primary_out(self.best[wl], self.base[wl],
                                      self.ceiling))
         else:
@@ -876,6 +904,8 @@ def run_workloads(b: Bench, chosen) -> None:
         b.out["gather_ceiling_rows_s"] = round(m.ceiling, 0)
         b.out["gather_ceiling_measured"] = True
         b.out["gather_ceiling_ms"] = m.ceiling_ms
+        b.out["gather_ceiling_bare_ms"] = m.ceiling_bare_ms
+        b.out["gather_ceiling_by"] = m.ceiling_by
 
 
 def cache_gb() -> float:

@@ -10,8 +10,9 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card: the card's name and power limit (nvidia-smi);
 2. build: nvcc for the eleven CUDA kernels (the nine csrc/*.cu, one nvcc
    each, all started together), nvcc for the bare gathers that the
-   probes are held to (GATHER_SRC, not kernels of the port) and g++ for
-   the C++ host engine, timed;
+   probes are held to (csrc/floors/gathers.cu through
+   shark_tpu_torch/floors.py, not kernels of the port) and g++ for the
+   C++ host engine, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main paths' shapes (B = 8192 and 65536 reads,
    L = 104 single-end and 208 paired): exact equality (integer code,
@@ -96,7 +97,8 @@ Phases, each printing its lines; any failure exits non-zero:
    reads/s beside the CPU count; (k) (a) again with --profile-dir, (a)'s
    bytes and launch counts, and the card's busy share read from the
    trace's kernel records over the span from the first kernel to the
-   last (and against classify_s); (l) (c)'s pairs split in two at a pair
+   last (and against classify_s), through shark_tpu_torch/utils/trace.py;
+   (l) (c)'s pairs split in two at a pair
    boundary, two CLI processes at once on the card (--coordinator
    localhost:<free port> --num-hosts 2 --host-id 0|1, each with a
    timeout), whose parts merged in host order are (c)'s bytes; (n)
@@ -118,7 +120,13 @@ Phases, each printing its lines; any failure exits non-zero:
    --workload panel in a process of its own at 50k reads (its comparator,
    passes, --backend native, device-only batch, gather ceiling and the
    re-visit on the saved index and its probe-table cache), whose line
-   must hold panel_exact true; its launches are its own process's.
+   must hold panel_exact true; its launches are its own process's. Then
+   (p) scripts/profile_e2e_torch.py --workload panel at 50k reads in a
+   process of its own: the serial pass's stages (parse, h2d, dispatch,
+   device, fetch_packed, extract_pairs, winner_pairs, emit) must add up
+   to within 5% of its total, its bytes must equal the overlapped
+   passes' and its profiled pass's, and it must launch the panel path's
+   kernels; one line prints the split.
    The launch counters are zeroed before each run and read after it:
    (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
    xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
@@ -481,193 +489,20 @@ def device_records(prof):
     return out
 
 
-# The floors the probes are held to (as P1 holds K5 and K7b): bare gathers
-# of table rows at the probes' own indices, each row folded to one word so
-# that the loads cannot be dropped, four indices a thread with every load
-# issued before the first fold. rows16 / rows32 gather 16- or 32-byte rows
-# (the xl probe's bucket; the hashed probe's entry16 bucket), rows8 8-byte
-# rows (a (word, rank) or pay row); two_level gathers a word row and then,
-# where pidx >= 0, a pay row whose address depends on the loaded word (the
-# owner probe's two dependent reads without its arithmetic). Not kernels
-# of the port: they compute nothing the classify path needs.
-GATHER_SRC = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-typedef uint32_t u32;
-__device__ __forceinline__ uint4 ld16(const uint4* p) {
-  uint4 v;
-  asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ uint2 ld8(const uint2* p) {
-  uint2 v;
-  asm volatile("ld.global.v2.u32 {%0, %1}, [%2];"
-      : "=r"(v.x), "=r"(v.y) : "l"(p));
-  return v;
-}
-template <int R>
-__global__ void gather_rows(const uint4* __restrict__ table,
-                            const int32_t* __restrict__ idx, long long n,
-                            u32* __restrict__ out) {
-  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  uint4 v[4][R];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < R; ++c)
-      v[r][c] = i0 + r < n ? ld16(table + (uint64_t)(u32)idx[i0 + r] * R + c)
-                           : make_uint4(0, 0, 0, 0);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    u32 x = 0;
-#pragma unroll
-    for (int c = 0; c < R; ++c) x ^= v[r][c].x ^ v[r][c].y ^ v[r][c].z ^ v[r][c].w;
-    if (i0 + r < n) out[i0 + r] = x;
-  }
-}
-__global__ void gather_rows8(const uint2* __restrict__ table,
-                             const int32_t* __restrict__ idx, long long n,
-                             u32* __restrict__ out) {
-  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  uint2 v[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    v[r] = i0 + r < n ? ld8(table + (u32)idx[i0 + r]) : make_uint2(0, 0);
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    if (i0 + r < n) out[i0 + r] = v[r].x ^ v[r].y;
-}
-__global__ void gather_two_level(const uint2* __restrict__ words,
-                                 const int32_t* __restrict__ widx,
-                                 const uint2* __restrict__ pay,
-                                 const int32_t* __restrict__ pidx,
-                                 long long n, u32 zero,
-                                 u32* __restrict__ out) {
-  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  uint2 w[4];
-  int32_t p[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    w[r] = i0 + r < n ? ld8(words + (u32)widx[i0 + r]) : make_uint2(0, 0);
-    p[r] = i0 + r < n ? pidx[i0 + r] : -1;
-  }
-  uint2 q[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    q[r] = p[r] >= 0 ? ld8(pay + ((u32)p[r] ^ (w[r].x & zero)))
-                     : make_uint2(0, 0);
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    if (i0 + r < n) out[i0 + r] = w[r].x ^ w[r].y ^ q[r].x ^ q[r].y;
-}
-static unsigned grid4(long long n) { return (unsigned)((n + 1023) / 1024); }
-extern "C" int gather_rows_launch(const void* table, const void* idx,
-                                  long long n, int row_bytes, void* out,
-                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0 && row_bytes == 8)
-    gather_rows8<<<grid4(n), 256, 0, st>>>(
-        (const uint2*)table, (const int32_t*)idx, n, (u32*)out);
-  else if (n > 0 && row_bytes == 16)
-    gather_rows<1><<<grid4(n), 256, 0, st>>>(
-        (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
-  else if (n > 0 && row_bytes == 32)
-    gather_rows<2><<<grid4(n), 256, 0, st>>>(
-        (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
-  else if (n > 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-extern "C" int gather_two_level_launch(const void* words, const void* widx,
-                                       const void* pay, const void* pidx,
-                                       long long n, void* out, void* stream) {
-  if (n > 0)
-    gather_two_level<<<grid4(n), 256, 0, (cudaStream_t)stream>>>(
-        (const uint2*)words, (const int32_t*)widx, (const uint2*)pay,
-        (const int32_t*)pidx, n, 0u, (u32*)out);
-  return (int)cudaGetLastError();
-}
-extern "C" int set_l2_fetch_granularity(long long bytes, long long* was) {
-  size_t old = 0;
-  cudaError_t e = cudaDeviceGetLimit(&old, cudaLimitMaxL2FetchGranularity);
-  if (e == cudaSuccess) {
-    *was = (long long)old;
-    if (bytes > 0)
-      e = cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
-  }
-  return (int)e;
-}
-"""
+def Gathers():
+    """The bare row gathers the probes are held to (as P1 holds K5 and
+    K7b): shark_tpu_torch/floors.py of this checkout and its source
+    csrc/floors/gathers.cu (8-, 16- and 32-byte rows, a dependent two-level
+    gather; not kernels of the port), built. Loaded by path, so that a
+    script timing another checkout's package still finds them."""
+    import importlib.util
 
-
-class Gathers:
-    """GATHER_SRC nvcc'd into build/gathers/ (beside the kernels' build
-    directory), called on the current stream."""
-
-    def __init__(self):
-        import ctypes
-
-        from shark_tpu_torch import kernels
-
-        d = os.path.join(HERE, "build", "gathers")
-        os.makedirs(d, exist_ok=True)
-        src = os.path.join(d, "gathers.cu")
-        so = os.path.join(d, "libgathers.so")
-        with open(src, "w") as f:
-            f.write(GATHER_SRC)
-        r = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
-                            "-shared", "-o", so, src],
-                           capture_output=True, text=True)
-        need(r.returncode == 0, "nvcc failed for the bare gathers\n"
-             + r.stdout + r.stderr)
-        lib = ctypes.CDLL(so)
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        self._rows = lib.gather_rows_launch
-        self._rows.argtypes = [vp, vp, ll, ctypes.c_int, vp, vp]
-        self._two = lib.gather_two_level_launch
-        self._two.argtypes = [vp, vp, vp, vp, ll, vp, vp]
-        self._l2 = lib.set_l2_fetch_granularity
-        self._l2.argtypes = [ll, ctypes.POINTER(ll)]
-        for fn in (self._rows, self._two, self._l2):
-            fn.restype = ctypes.c_int
-
-    @staticmethod
-    def _out(idx):
-        return torch.empty(idx.numel(), dtype=torch.uint32,
-                           device=idx.device)
-
-    def rows(self, table, idx, row_bytes):
-        """u32[n]: the xor of the words of row idx[i] (i32) of `table`,
-        read as rows of row_bytes (8, 16 or 32)."""
-        out = self._out(idx)
-        rc = self._rows(table.data_ptr(), idx.data_ptr(), idx.numel(),
-                        row_bytes, out.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-        need(rc == 0, f"gather_rows launch failed ({rc})")
-        return out
-
-    def two_level(self, words, widx, pay, pidx):
-        """u32[n]: the xor of words' 8-byte row widx[i] and, where
-        pidx[i] >= 0, pay's 8-byte row pidx[i], loaded after the word."""
-        out = self._out(widx)
-        rc = self._two(words.data_ptr(), widx.data_ptr(), pay.data_ptr(),
-                       pidx.data_ptr(), widx.numel(), out.data_ptr(),
-                       torch.cuda.current_stream().cuda_stream)
-        need(rc == 0, f"gather_two_level launch failed ({rc})")
-        return out
-
-    def l2_fetch_granularity(self, nbytes=0):
-        """The device's cudaLimitMaxL2FetchGranularity before this call;
-        sets it to nbytes when nbytes > 0 (device-wide: measurement
-        only)."""
-        import ctypes
-
-        was = ctypes.c_longlong(0)
-        rc = self._l2(nbytes, ctypes.byref(was))
-        need(rc == 0, f"cudaDeviceSetLimit(L2 fetch granularity) failed "
-                      f"({rc})")
-        return was.value
+    spec = importlib.util.spec_from_file_location(
+        "shark_floors", os.path.join(HERE, "shark_tpu_torch", "floors.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.lib()
+    return mod
 
 
 def xor_rows(rows32):
@@ -2092,55 +1927,66 @@ def e2e_bench_gpu(work, n_reads=N_BENCH_READS, timeout_s=180):
     return {"seconds": secs, "line": line}
 
 
+def e2e_profile_split(work, n_reads=N_BENCH_READS, timeout_s=240):
+    """(p) scripts/profile_e2e_torch.py --workload panel at `n_reads` in a
+    process of its own, its files under `work`: the serial pass's stages
+    must add up to within 5% of its total, its bytes must equal the
+    overlapped passes', and the serial pass must launch the panel path's
+    kernels (its launches are its own process's). Prints the split."""
+    cmd = [sys.executable, os.path.join(HERE, "scripts",
+                                        "profile_e2e_torch.py"),
+           "--workload", "panel", "--reads", str(n_reads), "--cache",
+           os.path.join(work, "profile_e2e")]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"profile split (p): no line in {timeout_s} s") \
+            from e
+    secs = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        line = None
+    if p.returncode != 0 or not line or line.get("bytes_equal") is not True:
+        sys.stderr.write(p.stderr[-4000:])
+        raise SmokeFailure(f"profile split (p): exit {p.returncode}, line "
+                           f"{lines[-1] if lines else None}")
+    total, stages = line["serial_total_s"], line["stages_s"]
+    need(abs(sum(stages.values()) - total) <= 0.05 * total,
+         f"profile split (p): stages {stages} do not add up to {total} s")
+    launched = line["launches"]["serial"]
+    need(all(launched.get(k, 0) > 0 for k in PATH_KERNELS["panel"]),
+         f"profile split (p): the serial pass launched {launched}")
+    shutil.rmtree(os.path.join(work, "profile_e2e"), ignore_errors=True)
+    say(f"profile split (p): panel, {line['reads']} reads in "
+        f"{line['batches']} batches, serial {total:.4f} s = " + " + ".join(
+            f"{k} {v:.4f}" for k, v in stages.items())
+        + f" s (synchronised at stage boundaries); overlapped classify_s "
+        f"{line['overlapped_classify_s']}; card busy "
+        f"{line['trace']['kernel_busy_ms']:.2f} ms of its profiled pass; "
+        f"bytes equal; {secs:.1f} s")
+    return {"seconds": secs, "line": line}
+
+
 def trace_busy(trace_dir):
-    """The card's busy share from a torch.profiler Chrome trace: the union
-    of its kernel records (and of kernels, copies and memsets) over the
-    window from the first kernel's start to the last kernel's end; and,
-    for each host thread that ran torch operators, the union of its
-    operators and of its CUDA runtime calls, with the runtime calls that
-    took longest."""
-    names = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    """(k)'s reading of its one trace, through shark_tpu_torch/utils/
+    trace.py (what scripts/trace_report_torch.py prints): the card's busy
+    share, the union of its kernel records (and of kernels, copies and
+    memsets) over the window from the first kernel's start to the last
+    kernel's end; and, for each host thread, the union of its torch
+    operators and of its CUDA runtime calls, with the calls that took
+    longest."""
+    from shark_tpu_torch.utils import trace
+
+    names = trace.trace_files(trace_dir)
     need(len(names) == 1, f"profile: trace files {names}")
-    with open(os.path.join(trace_dir, names[0])) as f:
-        events = json.load(f)["traceEvents"]
-
-    def spans(cats, tid=None):
-        return sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-                      if e.get("ph") == "X" and e.get("cat") in cats
-                      and (tid is None or e.get("tid") == tid))
-
-    def union(iv):
-        total, end = 0.0, None
-        for a, b in iv:
-            if end is None or a > end:
-                total += b - a
-                end = b
-            elif b > end:
-                total += b - end
-                end = b
-        return total
-
-    kern = spans(("kernel",))
-    need(kern, "profile: the trace holds no CUDA kernel record")
-    window = max(b for _, b in kern) - kern[0][0]
-    dev = spans(("kernel", "gpu_memcpy", "gpu_memset"))
-    host = {}
-    for tid in sorted({e.get("tid") for e in events
-                       if e.get("cat") == "cpu_op"}, key=str):
-        calls = {}
-        for e in events:
-            if e.get("cat") == "cuda_runtime" and e.get("tid") == tid:
-                calls[e["name"]] = calls.get(e["name"], 0) + e.get("dur", 0)
-        host[str(tid)] = {
-            "ops_ms": union(spans(("cpu_op",), tid)) / 1e3,
-            "runtime_ms": union(spans(("cuda_runtime",), tid)) / 1e3,
-            "top_runtime_ms": {k: v / 1e3 for k, v in sorted(
-                calls.items(), key=lambda kv: -kv[1])[:3]}}
-    return {"trace": names[0], "trace_mb": os.path.getsize(
-                os.path.join(trace_dir, names[0])) / 1e6,
-            "kernels": len(kern), "kernel_busy_ms": union(kern) / 1e3,
-            "device_busy_ms": union(dev) / 1e3, "window_ms": window / 1e3,
-            "host": host}
+    busy = trace.summarize(names[0])
+    need(busy["kernels"], "profile: the trace holds no CUDA kernel record")
+    return busy
 
 
 def e2e_profiled_panel(work, n_reads, want, launches, keep=""):
@@ -2181,6 +2027,8 @@ def e2e_profiled_panel(work, n_reads, want, launches, keep=""):
         f"kernels {100 * busy['kernel_busy_ms'] / cls_ms:.2f}% of "
         f"classify_s ({cls_ms:.1f} ms); trace {busy['trace_mb']:.1f} MB")
     for tid, h in busy["host"].items():
+        if not h["ops_ms"]:
+            continue  # a thread that only waits on the card (the drain)
         say(f"trace host thread {tid} (k): torch operators "
             f"{h['ops_ms']:.1f} ms, CUDA runtime {h['runtime_ms']:.1f} ms "
             f"(longest: " + ", ".join(f"{k} {v:.1f}" for k, v in
@@ -2314,7 +2162,7 @@ def main() -> int:
     def build_floor():
         try:
             gpp["gathers"] = Gathers()
-        except SmokeFailure as e:
+        except RuntimeError as e:
             gpp["err"] = e
 
     threads = [threading.Thread(target=f) for f in (build_native, build_floor)]
@@ -2442,6 +2290,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         e2e_stats["soak"] = e2e_soak(work, launches)
         e2e_stats["bench_gpu"] = e2e_bench_gpu(work)
+        e2e_stats["profile_split"] = e2e_profile_split(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry

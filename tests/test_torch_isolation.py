@@ -2,7 +2,7 @@
 
 - importing it imports neither jax nor shark_tpu, and no source of the
   port (nor chip_smoke.py, nor scripts/fuzz_soak_torch.py and the seed
-  body it loads) imports them;
+  body it loads, nor the stage profilers in scripts/) imports them;
 - bench_gpu.py, the port's bench, imports and loads neither them nor
   bench.py or bench/, also while it runs;
 - its C++ host engine is shark_tpu's, byte for byte;
@@ -33,6 +33,9 @@ from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "shark_tpu_torch")
+# the end-to-end stage profilers (scripts/)
+STAGE_SCRIPTS = ("profile_e2e_torch", "dispatch_bench_torch",
+                 "parser_bench_torch", "trace_report_torch")
 
 
 def _port_sources():
@@ -42,6 +45,8 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "fuzz_soak_torch.py")
+    for name in STAGE_SCRIPTS:
+        yield os.path.join(ROOT, "scripts", f"{name}.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -80,6 +85,27 @@ def test_soak_and_its_seed_body_load_without_jax():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'shark_tpu')); print(bad); sys.exit(bool(bad))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_stage_profilers_load_without_jax():
+    """The stage profilers and the modules they bring (bench_gpu.py,
+    shark_tpu_torch/utils/trace.py, shark_tpu_torch/floors.py) import
+    neither jax nor shark_tpu, nor bench.py or bench/."""
+    code = (
+        "import importlib.util, sys\n"
+        f"for name in {STAGE_SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'scripts/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import shark_tpu_torch.floors, shark_tpu_torch.utils.trace\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'shark_tpu', 'bench')); print(bad); "
+        "sys.exit(bool(bad))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
