@@ -126,7 +126,16 @@ Phases, each printing its lines; any failure exits non-zero:
    device, fetch_packed, extract_pairs, winner_pairs, emit) must add up
    to within 5% of its total, its bytes must equal the overlapped
    passes' and its profiled pass's, and it must launch the panel path's
-   kernels; one line prints the split.
+   kernels; one line prints the split. Then (q) the A/B harnesses, each
+   in a process of its own on one cache at 50k reads:
+   scripts/repro_contamination_torch.py (the homolog, then bench_gpu.py's
+   panel stage in the same process, then the homolog again; every pass's
+   bytes equal, one line of the before and after reads/s with the
+   diagnostics that moved) and scripts/ab_layout_torch.py at the natural
+   bucket count and one below, 8 and 4 slots (every variant's probe equal
+   to its plain version and its verdicts to the production layout's);
+   and the bare gathers' 4-, 64- and 128-byte rows against their plain
+   versions.
    The launch counters are zeroed before each run and read after it:
    (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
    xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
@@ -398,77 +407,6 @@ def bound(nbytes: float, ops: float):
     return (tb, "bytes", tb, to) if tb >= to else (to, "operations", tb, to)
 
 
-def op_name(key):
-    """A profiler record's kernel name without its namespace and
-    arguments."""
-    return key.replace("(anonymous namespace)::", "").split("(")[0].strip() \
-        or key
-
-
-def profile_session(fn, reps):
-    """(device ms of one fn() call, {op: device ms per call}) from one
-    torch.profiler session over `reps` calls, L2 warm. Each kernel or
-    memset's self time is divided by its records, since a session may miss
-    the records of some calls, then multiplied by the records a call
-    makes (rounded), so that two memsets of one call both count."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = {}
-    for e, t in device_records(prof):
-        name = op_name(e.key)
-        per_call = max(1, round(e.count / reps))
-        ops[name] = ops.get(name, 0.0) + t / e.count * per_call / 1e3
-    return sum(ops.values()), ops
-
-
-def device_profile(fn, reps=REPS):
-    """Device time of one fn() call, L2 warm, held against the
-    back-to-back event time of the same call: {"device_ms", "device_ops"
-    (ms per kernel or memset), "back_to_back_ms", "host_ms"}. The least
-    of three profiler sessions (a session may also record work queued
-    before it, such as another timer's L2 flush). Where the card, not the
-    host, sets the back-to-back time (it is over 1.25x the host's time to
-    queue the same calls, taken in the same loop), that time is device
-    time plus launch gaps, so a session under 0.8x of it has lost
-    records: it is dropped, and up to three more sessions are taken. If
-    none agrees, the row keeps the least reading and gains
-    "device_ms_suspect" with every reading, and a line says so; a low
-    reading is never kept silently. device_ms is None when no session
-    records device time."""
-    fn()
-    torch.cuda.synchronize()
-    sessions = [profile_session(fn, reps) for _ in range(3)]
-    b2b, host = queue_ms(fn)
-    queued = b2b > 1.25 * host
-
-    def agrees(s):
-        return s[0] > 0 and (not queued or s[0] >= 0.8 * b2b)
-
-    for _ in range(3):
-        if any(agrees(s) for s in sessions) or not queued:
-            break
-        sessions.append(profile_session(fn, reps))
-    out = {"device_ms": None, "back_to_back_ms": b2b, "host_ms": host}
-    recorded = [s for s in sessions if s[0] > 0]
-    if not recorded:
-        return out
-    good = [s for s in recorded if agrees(s)]
-    best = min(good or recorded, key=lambda s: s[0])
-    out["device_ms"], out["device_ops"] = best
-    if not good:
-        out["device_ms_suspect"] = {
-            "sessions_ms": [s[0] for s in recorded], "back_to_back_ms": b2b,
-            "host_ms": host}
-        say(f"device_ms suspect: every profiler reading "
-            f"{[round(s[0], 4) for s in recorded]} ms is under 0.8x the "
-            f"back-to-back time {b2b:.4f} ms (host {host:.4f} ms a call)")
-    return out
-
-
 def device_fields(fn):
     """A kernel row's device fields: device_ms, device_ops and, where the
     reading disagrees with the back-to-back time, device_ms_suspect."""
@@ -477,30 +415,36 @@ def device_fields(fn):
             if k in p}
 
 
-def device_records(prof):
-    """(event, self device µs over all its records) of each kernel or
-    memset a torch.profiler session recorded."""
-    out = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
-        if t > 0 and e.count > 0:
-            out.append((e, t))
-    return out
+def own_module(name, *path):
+    """A module of this checkout's shark_tpu_torch/ loaded by path, so
+    that a script timing another checkout's package still finds it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "shark_tpu_torch", *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def own_timers():
+    """This checkout's shark_tpu_torch/utils/timers.py (profiler sessions,
+    back-to-back event times, the L2 flush)."""
+    return own_module("shark_timers", "utils", "timers.py")
+
+
+def device_profile(fn):
+    """timers.device_profile at REPS, L2 warm, its warnings printed."""
+    return own_timers().device_profile(fn, REPS, warn=say)
 
 
 def Gathers():
     """The bare row gathers the probes are held to (as P1 holds K5 and
     K7b): shark_tpu_torch/floors.py of this checkout and its source
-    csrc/floors/gathers.cu (8-, 16- and 32-byte rows, a dependent two-level
-    gather; not kernels of the port), built. Loaded by path, so that a
-    script timing another checkout's package still finds them."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "shark_floors", os.path.join(HERE, "shark_tpu_torch", "floors.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    csrc/floors/gathers.cu (4- to 128-byte rows, a dependent two-level
+    gather; not kernels of the port), built, loaded by path."""
+    mod = own_module("shark_floors", "floors.py")
     mod.lib()
     return mod
 
@@ -523,31 +467,6 @@ def timings(fn):
     p = device_profile(fn)
     out = (cuda_ms(fn, reps=REPS), p["device_ms"], p["back_to_back_ms"])
     return out + (("device_ms_suspect",) if "device_ms_suspect" in p else ())
-
-
-def queue_ms(fn, n=20):
-    """(back-to-back ms, host ms) of one fn() call: n calls queued back to
-    back between two CUDA events, L2 warm, and the host's clock over the
-    same loop (no synchronisation inside it). The first is the device
-    time of one call when its kernels take longer than the host needs to
-    queue them, as the xl probe's do; the second is then the smaller."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    t1 = time.perf_counter()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n, (t1 - t0) / n * 1e3
-
-
-def back_to_back_ms(fn, n=20):
-    """The back-to-back time of queue_ms."""
-    return queue_ms(fn, n)[0]
 
 
 def xl_footprint(args6, hmeta, gathers):
@@ -1972,6 +1891,74 @@ def e2e_profile_split(work, n_reads=N_BENCH_READS, timeout_s=240):
     return {"seconds": secs, "line": line}
 
 
+def e2e_ab_harnesses(work, gathers, n_reads=N_BENCH_READS, timeout_s=120):
+    """(q) scripts/repro_contamination_torch.py and
+    scripts/ab_layout_torch.py --below 1 --slots 8 4 --no-entry8 at
+    `n_reads`, one process each, one cache under `work` (the phase's
+    module docstring), and the bare gathers' new widths against their
+    plain versions."""
+    cache = os.path.join(work, "ab_q")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    lines = {}
+    for name, extra in (
+            ("repro_contamination_torch", []),
+            ("ab_layout_torch", ["--below", "1", "--slots", "8", "4",
+                                 "--no-entry8", "--batches", "2", "--reps",
+                                 "3"])):
+        cmd = [sys.executable, os.path.join(HERE, "scripts", f"{name}.py"),
+               "--reads", str(n_reads), "--cache", cache, *extra]
+        try:
+            p = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                               text=True, timeout=timeout_s)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"(q) {name}: no line in {timeout_s} s") from e
+        out = p.stdout.strip().splitlines()
+        try:
+            lines[name] = json.loads(out[-1])
+        except (IndexError, ValueError):
+            lines[name] = None
+        if p.returncode != 0 or not lines[name]:
+            sys.stderr.write(p.stderr[-4000:])
+            raise SmokeFailure(f"(q) {name}: exit {p.returncode}, line "
+                               f"{out[-1] if out else None}")
+    repro, layout = (lines["repro_contamination_torch"],
+                     lines["ab_layout_torch"])
+    need(repro["bytes_equal"] is True, f"(q) repro: bytes differ: {repro}")
+    rps = repro["reads_per_sec_best"]
+    say(f"(q) repro_contamination: homolog {n_reads} reads, best reads/s "
+        f"before {rps['before']:.1f}, after the panel stage "
+        f"{rps['after']:.1f}, after gc {rps['after-gc']:.1f}, after sync "
+        f"{rps['after-sync']:.1f}; serial s {repro['serial_total_s']}; "
+        f"diagnostics that moved {json.dumps(repro['moved'])}; bytes equal")
+    built = [r for r in layout["rows"] if r["buildable"]]
+    need(layout["verdicts_equal"] and all(
+        r["verdicts_equal"] and r["probe_equal_plain"] for r in built),
+        f"(q) ab_layout: a probe or verdict differs: {layout['rows']}")
+    need(len(built) >= 3, f"(q) ab_layout: {len(built)} layouts built")
+    say("(q) ab_layout: natural lgB " + str(layout["natural_lgB"]) + "; "
+        + "; ".join(
+            f"{r['name']} {r['table_mb']:g} MB stash {r['stash_real']}"
+            + (f" probe {r['probe_device_ms']:.4f} ms device ({r['route']})"
+               if r.get("probe_device_ms") else "")
+            if r["buildable"] else f"{r['name']}: {r['why']}"
+            for r in layout["rows"]) + "; every verdict equal")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    table = torch.empty(16 << 20, dtype=torch.int32,
+                        device="cuda").random_(generator=g)
+    for row_bytes in (4, 64, 128):
+        idx = torch.randint(0, table.numel() * 4 // row_bytes, (1 << 20,),
+                            generator=g, device="cuda", dtype=torch.int32)
+        same(f"gather_rows{row_bytes}", [gathers.rows(table, idx, row_bytes)],
+             [gathers.rows_plain(table, idx, row_bytes)])
+    del table
+    shutil.rmtree(cache, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    say(f"(q) the A/B harnesses and the new gather widths: {secs:.1f} s")
+    return {"seconds": secs, "repro": repro, "layout": layout}
+
+
 def trace_busy(trace_dir):
     """(k)'s reading of its one trace, through shark_tpu_torch/utils/
     trace.py (what scripts/trace_report_torch.py prints): the card's busy
@@ -2291,6 +2278,7 @@ def main() -> int:
         e2e_stats["soak"] = e2e_soak(work, launches)
         e2e_stats["bench_gpu"] = e2e_bench_gpu(work)
         e2e_stats["profile_split"] = e2e_profile_split(work)
+        e2e_stats["ab_harnesses"] = e2e_ab_harnesses(work, gathers)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry

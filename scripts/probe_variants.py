@@ -8,7 +8,7 @@ to.
     python3 scripts/probe_variants.py [OTHER_CHECKOUT ...]
 
 Every variant is built by nvcc into a library of its own under
-build/probe_variants/ and called through its C entry point, and is first
+build/variants/ and called through its C entry point, and is first
 held to the plain version (exact); then all are timed back to back (20
 launches between two CUDA events, L2 warm) in two rounds of alternating
 order.
@@ -41,7 +41,6 @@ limit is device-wide, and no code of the port sets it.
 import ctypes
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -56,40 +55,15 @@ from shark_tpu_torch import kernels  # noqa: E402
 from shark_tpu_torch.io import native  # noqa: E402
 from shark_tpu_torch.parallel import sharded_bf as sb  # noqa: E402
 
+timers = cs.own_timers()
+
 B, L = 65536, 104
 SLOTS = re.compile(r"constexpr int kProbeSlots = \d+;")
 LOAD = '#define SHKK_PROBE_LOAD "ld.global.v2.u32"'
 LOAD_NC = '#define SHKK_PROBE_LOAD "ld.global.nc.L1::no_allocate.v2.u32"'
-LOGS = {}
 # the entry point before it took the owner count (one thread a slot)
 OLD_SIGNATURE = re.compile(r"shkk_shard_probe\(const void\* recv, long long "
                            r"per_owner,\s+long long total")
-
-
-def build(name, text, inc, entry, argtypes, flags=()):
-    """nvcc one variant's source into its own library, started; returns
-    a function that waits for it and gives its C entry point. The
-    compiler's output is kept in LOGS[name]."""
-    d = os.path.join(OWN_ROOT, "build", "probe_variants", name)
-    os.makedirs(d, exist_ok=True)
-    src, so = os.path.join(d, "src.cu"), os.path.join(d, "lib.so")
-    with open(src, "w") as f:
-        f.write(text)
-    p = subprocess.Popen([kernels.nvcc_path(), *kernels.NVCC_FLAGS, *flags,
-                          "-shared", "-I", inc, "-o", so, src],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-
-    def done():
-        log, _ = p.communicate()
-        LOGS[name] = log
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}\n{log}")
-        fn = getattr(ctypes.CDLL(so), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        return fn
-    return done
 
 
 def source(root, name):
@@ -120,8 +94,8 @@ def route_variants(others):
         argtypes = kernels._SIGNATURES["shkk_shard_probe"]
         if not owners:
             argtypes = [ctypes.c_void_p, ctypes.c_longlong, *argtypes[2:]]
-        out[name] = (build(f"route_{name}", text, inc, "shkk_shard_probe",
-                           argtypes), owners)
+        out[name] = (kernels.build_variant(
+            f"route_{name}", text, inc, "shkk_shard_probe", argtypes), owners)
     return out
 
 
@@ -135,8 +109,8 @@ def probe_variants(others):
         if not new:  # the entry point before it took n_real
             argtypes = argtypes[:10] + argtypes[11:]
         name = "committed" if k == 0 else f"other{k - 1}"
-        out[name] = (build(f"probe_{name}", text, inc, "shkk_probe",
-                           argtypes), new)
+        out[name] = (kernels.build_variant(
+            f"probe_{name}", text, inc, "shkk_probe", argtypes), new)
     return out
 
 
@@ -158,23 +132,6 @@ def route_caller(fn, owners, tables):
     return call
 
 
-def probe_caller(fn, new, table, hmeta):
-    """(idx_hi, idx_lo, win_valid, stash, n_real) -> (tagv, payv) through
-    one K2 variant; `new`: its entry point takes n_real."""
-    def call(hi, lo, valid, stash, n_real):
-        n = lo.numel()
-        tagv = torch.empty_like(lo)
-        payv = torch.empty_like(lo)
-        rows = (n_real,) if new else ()
-        rc = fn(hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), n,
-                table.data_ptr(), hmeta.lgB, int(hmeta.entry16), hmeta.slots,
-                stash.data_ptr(), stash.shape[0], *rows, tagv.data_ptr(),
-                payv.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-        return tagv, payv
-    return call
-
-
 def alternate(calls, runs):
     """{run: {variant: (least, most) back-to-back ms}} over two rounds of
     alternating order; runs[run] maps a variant's call to a thunk."""
@@ -184,7 +141,7 @@ def alternate(calls, runs):
         times = {name: [] for name in names}
         for order in (names, names[::-1]):
             for name in order:
-                times[name].append(cs.back_to_back_ms(bind(calls[name])))
+                times[name].append(timers.back_to_back_ms(bind(calls[name])))
         out[run] = {name: (min(t), max(t)) for name, t in times.items()}
     return out
 
@@ -214,7 +171,8 @@ def time_probe(built):
     hi, lo, valid, _ = step.front_end(*step.pack_codes(codes), meta)
     want = hashed.probe_hashed_plain(hi, lo, valid, dix.table, dix.stash,
                                      hmeta)
-    calls = {name: probe_caller(fn(), new, dix.table, hmeta)
+    calls = {name: kernels.probe_variant_caller(fn(), new, dix.table,
+                                                hmeta)
              for name, (fn, new) in built.items()}
     for name, call in calls.items():
         cs.same(f"probe_hashed variant {name}",
@@ -240,7 +198,7 @@ def time_probe(built):
     def p2():
         return R.resident_match(rows, wantp, t128)
     print(f"  resident_match (P2) on the same buckets: back-to-back "
-          f"{cs.back_to_back_ms(p2):.4f}, device "
+          f"{timers.back_to_back_ms(p2):.4f}, device "
           f"{cs.device_profile(p2)['device_ms']:.4f}",
           flush=True)
 
@@ -280,13 +238,13 @@ def time_shard_probe(fns):
 
     def floors():
         return {
-            "two_level": cs.back_to_back_ms(lambda: gathers.two_level(
+            "two_level": timers.back_to_back_ms(lambda: gathers.two_level(
                 tables.bf_rank, widx, tables.pay, pidx)),
-            "gather_words": cs.back_to_back_ms(
+            "gather_words": timers.back_to_back_ms(
                 lambda: gathers.rows(tables.bf_rank, widx, 8)),
-            "gather_pays": cs.back_to_back_ms(
+            "gather_pays": timers.back_to_back_ms(
                 lambda: gathers.rows(tables.pay, ridx, 8)),
-            "committed": cs.back_to_back_ms(
+            "committed": timers.back_to_back_ms(
                 lambda: sb.shard_probe(recv, tables.bf_rank, tables.pay)),
         }
     was = gathers.l2_fetch_granularity()

@@ -398,6 +398,23 @@ def workload_config(b: "bench_gpu.Bench", wl: str):
     return cfg, b.classifier("txome", cfg, idx_dir)[1]
 
 
+def size_workloads(reads: int, cache: str = "") -> None:
+    """Set bench_gpu.py's panel, q10, homolog and txome read counts to
+    `reads` (paired: reads / 2 pairs) and its cache to `cache`; by default
+    a count other than bench_gpu.py's keeps its files in
+    build/bench_gpu_reads<N>/, so that bench_gpu.py's own cache is left as
+    it is."""
+    if cache:
+        bench_gpu.CACHE = cache
+    elif reads != bench_gpu.N_READS:
+        bench_gpu.CACHE = os.path.join(ROOT, "build",
+                                       f"bench_gpu_reads{reads}")
+    if reads != bench_gpu.N_READS:
+        bench_gpu.N_READS = reads
+        bench_gpu.N_PAIRS = reads // 2
+        bench_gpu.HOMOLOG_READS = bench_gpu.TXOME_READS = reads
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", default="all",
@@ -420,15 +437,7 @@ def main(argv=None) -> int:
         print("profile_e2e_torch: no CUDA card; the split is measured on "
               "the card (--cpu runs the plain versions)", file=sys.stderr)
         return 1
-    if args.cache:
-        bench_gpu.CACHE = args.cache
-    elif args.reads != bench_gpu.N_READS:
-        bench_gpu.CACHE = os.path.join(ROOT, "build",
-                                       f"bench_gpu_reads{args.reads}")
-    if args.reads != bench_gpu.N_READS:
-        bench_gpu.N_READS = args.reads
-        bench_gpu.N_PAIRS = args.reads // 2
-        bench_gpu.HOMOLOG_READS = bench_gpu.TXOME_READS = args.reads
+    size_workloads(args.reads, args.cache)
     chosen = [w for w in bench_gpu.WORKLOADS
               if args.workload in ("all", w)]
     b = bench_gpu.Bench(device, float("inf"))

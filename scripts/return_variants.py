@@ -8,7 +8,7 @@ held to.
     python3 scripts/return_variants.py [OTHER_CHECKOUT ...]
 
 Every variant is built by nvcc into a library of its own under
-build/probe_variants/ and called through its C entry point, and is first
+build/variants/ and called through its C entry point, and is first
 held to the plain version (exact); then all are timed back to back (20
 launches between two CUDA events, L2 warm) in two rounds of alternating
 order, and each is given its device time (chip_smoke.device_profile:
@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 import probe_variants as pv
-from probe_variants import cs
+from probe_variants import cs, timers
 from shark_tpu_torch import kernels
 from shark_tpu_torch.classify import step
 from shark_tpu_torch.experiments import resident_match as R
@@ -217,23 +217,22 @@ def return_variants(others):
     for name, (text, inc) in texts_of("route.cu", others,
                                       return_edits).items():
         old = OLD_RETURN in text
-        out[name] = (pv.build(f"return_{name}", text, inc,
-                              "shkk_shard_return",
-                              OLD_ARGS if old else
-                              kernels._SIGNATURES["shkk_shard_return"]),
-                     not old)
+        out[name] = (kernels.build_variant(
+            f"return_{name}", text, inc, "shkk_shard_return",
+            OLD_ARGS if old else kernels._SIGNATURES["shkk_shard_return"]),
+            not old)
     return out
 
 
 def match_variants(others):
     """{name: build waiter} of P2's variants and the bare streaming pass."""
-    out = {name: pv.build(f"match_{name}", text, inc, "shkk_resident_match",
-                          MATCH_ARGS)
+    out = {name: kernels.build_variant(f"match_{name}", text, inc,
+                                       "shkk_resident_match", MATCH_ARGS)
            for name, (text, inc) in texts_of("resident_match.cu", others,
                                              match_edits).items()}
-    out["stream_pass"] = pv.build("stream_pass", STREAM_SRC, pv.OWN_ROOT,
-                                  "shkk_stream_pass",
-                                  [_VP, _VP, _L, _VP, _I, _VP])
+    out["stream_pass"] = kernels.build_variant(
+        "stream_pass", STREAM_SRC, pv.OWN_ROOT, "shkk_stream_pass",
+        [_VP, _VP, _L, _VP, _I, _VP])
     return out
 
 
@@ -282,7 +281,7 @@ def txome_index():
 def host_us(fn):
     """Host time of one call, over 20 calls queued without a
     synchronisation (chip_smoke.queue_ms)."""
-    return cs.queue_ms(fn)[1] * 1e3
+    return timers.queue_ms(fn)[1] * 1e3
 
 
 def say_times(name, fn):

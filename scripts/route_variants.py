@@ -7,7 +7,7 @@ the same windows, beside what they are held to.
     python3 scripts/route_variants.py [OTHER_CHECKOUT ...]
 
 Every variant is built by nvcc into a library of its own under
-build/probe_variants/ and called through its C entry point, and is first
+build/variants/ and called through its C entry point, and is first
 held to the plain version (exact, unless it is marked timing only); then
 all are timed back to back (20 launches between two CUDA events, L2 warm)
 in two rounds of alternating order, and each is given its device time
@@ -166,16 +166,16 @@ def route_variants(others):
         old = OLD_ROUTE in text
         argtypes = [_VP, _VP, _VP, _I, _L, _I, _L, _I, _L, _VP, *(
             [_VP] if old else []), _VP, _VP, _VP, _VP, _VP]
-        out[name] = (pv.build(f"route_k7a_{name}", text, inc,
-                              "shkk_shard_route", argtypes,
-                              flags=("-Xptxas", "-v")), old, exact)
+        out[name] = (kernels.build_variant(
+            f"route_k7a_{name}", text, inc, "shkk_shard_route", argtypes,
+            flags=("-Xptxas", "-v")), old, exact)
     return out
 
 
 def say_registers(names):
     """The registers and spills ptxas gave each variant's route_kernel."""
     for name in names:
-        log = pv.LOGS.get(f"route_k7a_{name}", "").splitlines()
+        log = kernels.VARIANT_LOGS.get(f"route_k7a_{name}", "").splitlines()
         for i, ln in enumerate(log):
             if "route_kernel" in ln and "Compiling" in ln:
                 info = [x.split("ptxas info    : ")[-1].strip()
@@ -199,8 +199,8 @@ def classic_variants(others):
             texts[f"other{k}_skip_pay"] = (text.replace(OLD_PAY, SKIP_PAY),
                                            oinc, False)
     argtypes = kernels._SIGNATURES["shkk_classic"]
-    return {name: (pv.build(f"classic_{name}", text, inc, "shkk_classic",
-                            argtypes), exact)
+    return {name: (kernels.build_variant(f"classic_{name}", text, inc,
+                                         "shkk_classic", argtypes), exact)
             for name, (text, inc, exact) in texts.items()}
 
 

@@ -59,8 +59,9 @@ def device_breakdown(cs, fn):
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    return {cs.op_name(e.key): (round(t / e.count / 1e3, 4), e.count)
-            for e, t in cs.device_records(prof)}
+    timers = cs.own_timers()
+    return {timers.op_name(e.key): (round(t / e.count / 1e3, 4), e.count)
+            for e, t in timers.device_records(prof)}
 
 
 def host_us(fn, n=50):

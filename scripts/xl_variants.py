@@ -38,6 +38,8 @@ from shark_tpu_torch import kernels  # noqa: E402
 from shark_tpu_torch.classify import hashed  # noqa: E402
 from shark_tpu_torch.io import native  # noqa: E402
 
+timers = cs.own_timers()
+
 B, L = 65536, 104
 LOAD = "ld.global.v4.u32"
 LOAD_NC = "ld.global.nc.L1::no_allocate.v4.u32"
@@ -142,12 +144,12 @@ def main() -> int:
         times = {name: [] for name in names}
         for order in (names, names[::-1]):
             for name in order:
-                times[name].append(cs.back_to_back_ms(
+                times[name].append(timers.back_to_back_ms(
                     lambda c=calls[name]: c(hi, m, valid)))
         print(f"  {tag:>5}: " + "  ".join(
             f"{name} {min(t):.4f}/{max(t):.4f}" for name, t in times.items()),
             flush=True)
-    g16 = cs.back_to_back_ms(lambda: gathers.rows(dix.table, bidx, 16))
+    g16 = timers.back_to_back_ms(lambda: gathers.rows(dix.table, bidx, 16))
     print(f"  gather16 (whole table): {g16:.4f}", flush=True)
     return 0
 

@@ -3,11 +3,15 @@
 // cannot be dropped, four indices a thread with every load issued before
 // the first fold. rows16 / rows32 gather 16- or 32-byte rows (the xl
 // probe's bucket; the hashed probe's entry16 bucket), rows8 8-byte rows (a
-// (word, rank) or pay row); two_level gathers a word row and then, where
-// pidx >= 0, a pay row whose address depends on the loaded word (the owner
-// probe's two dependent reads without its arithmetic). Not kernels of the
-// port: they compute nothing the classify path needs. Built on their own
-// by shark_tpu_torch/floors.py, not into the kernels' library.
+// (word, rank) or pay row); rows4, rows64 and rows128 the 4-, 64- and
+// 128-byte rows of the gather-rate sweep (scripts/gather_sweep_torch.py:
+// a u32 word, the entry8 bucket, two of them). Row offsets are 64-bit, so
+// tables past 2^31 bytes are read whole. two_level gathers a word row and
+// then, where pidx >= 0, a pay row whose address depends on the loaded
+// word (the owner probe's two dependent reads without its arithmetic).
+// Not kernels of the port: they compute nothing the classify path needs.
+// Built on their own by shark_tpu_torch/floors.py, not into the kernels'
+// library.
 #include <cstdint>
 #include <cuda_runtime.h>
 typedef uint32_t u32;
@@ -42,6 +46,18 @@ __global__ void gather_rows(const uint4* __restrict__ table,
     for (int c = 0; c < R; ++c) x ^= v[r][c].x ^ v[r][c].y ^ v[r][c].z ^ v[r][c].w;
     if (i0 + r < n) out[i0 + r] = x;
   }
+}
+__global__ void gather_rows4(const u32* __restrict__ table,
+                             const int32_t* __restrict__ idx, long long n,
+                             u32* __restrict__ out) {
+  const long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  u32 v[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    v[r] = i0 + r < n ? table[(uint64_t)(u32)idx[i0 + r]] : 0u;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (i0 + r < n) out[i0 + r] = v[r];
 }
 __global__ void gather_rows8(const uint2* __restrict__ table,
                              const int32_t* __restrict__ idx, long long n,
@@ -83,7 +99,10 @@ extern "C" int gather_rows_launch(const void* table, const void* idx,
                                   long long n, int row_bytes, void* out,
                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0 && row_bytes == 8)
+  if (n > 0 && row_bytes == 4)
+    gather_rows4<<<grid4(n), 256, 0, st>>>(
+        (const u32*)table, (const int32_t*)idx, n, (u32*)out);
+  else if (n > 0 && row_bytes == 8)
     gather_rows8<<<grid4(n), 256, 0, st>>>(
         (const uint2*)table, (const int32_t*)idx, n, (u32*)out);
   else if (n > 0 && row_bytes == 16)
@@ -91,6 +110,12 @@ extern "C" int gather_rows_launch(const void* table, const void* idx,
         (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
   else if (n > 0 && row_bytes == 32)
     gather_rows<2><<<grid4(n), 256, 0, st>>>(
+        (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
+  else if (n > 0 && row_bytes == 64)
+    gather_rows<4><<<grid4(n), 256, 0, st>>>(
+        (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
+  else if (n > 0 && row_bytes == 128)
+    gather_rows<8><<<grid4(n), 256, 0, st>>>(
         (const uint4*)table, (const int32_t*)idx, n, (u32*)out);
   else if (n > 0)
     return (int)cudaErrorInvalidValue;

@@ -2,7 +2,9 @@
 
 Measurement tools, not kernels of the port: no classify path calls them,
 and they count no launch. chip_smoke.py holds K2, K5, K6 and K7b to them,
-and bench_gpu.py takes the 32-byte gather as the card's gather ceiling.
+bench_gpu.py takes the 32-byte gather as the card's gather ceiling, and
+scripts/gather_sweep_torch.py times every width by table size and index
+order.
 Each gather folds a row to one u32 by xor, so its loads cannot be dropped.
 
 The source is compiled with nvcc on first use into
@@ -27,6 +29,9 @@ from shark_tpu_torch import kernels
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                    "floors", "gathers.cu")
 LIB_PATH = os.path.join(kernels.BUILD_DIR, "floors", "libgathers.so")
+
+# the row widths rows() gathers
+ROW_BYTES = (4, 8, 16, 32, 64, 128)
 
 _lib = None
 _lock = threading.Lock()
@@ -95,9 +100,11 @@ def rows_plain(table: torch.Tensor, idx: torch.Tensor,
 def rows(table: torch.Tensor, idx: torch.Tensor,
          row_bytes: int) -> torch.Tensor:
     """u32[n]: the xor of the words of row idx[i] (i32) of `table` (any
-    contiguous dtype), read as rows of row_bytes (8, 16 or 32)."""
-    if row_bytes not in (8, 16, 32):
-        raise ValueError(f"row_bytes {row_bytes} is not 8, 16 or 32")
+    contiguous dtype), read as rows of row_bytes (4, 8, 16, 32, 64 or
+    128); a table may pass 2^31 bytes."""
+    if row_bytes not in ROW_BYTES:
+        raise ValueError(f"row_bytes {row_bytes} is not 4, 8, 16, 32, 64 "
+                         "or 128")
     if not table.is_cuda:
         return rows_plain(table, idx, row_bytes)
     kernels.require(idx, "idx", torch.int32, 1, table.device)

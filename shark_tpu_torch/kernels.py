@@ -32,6 +32,9 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "shark_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libshark_kernels.so")
+# libraries of kernel variants built for a measurement (build_variant)
+VARIANT_DIR = os.path.join(os.path.dirname(_PKG), "build", "variants")
+VARIANT_LOGS: Dict[str, str] = {}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -238,6 +241,57 @@ def lib():
             so.shkk_shard_route_scratch.restype = _L
             _lib = so
         return _lib
+
+
+def build_variant(name: str, text: str, include: str, entry: str, argtypes,
+                  flags: Iterable[str] = ()):
+    """Start nvcc on one variant of a kernel's source (`text`, a source
+    changed for a measurement, not a kernel of the port) into a library of
+    its own, VARIANT_DIR/<name>/lib.so, with `include` on the include
+    path. Returns a function that waits for nvcc and gives the library's C
+    entry point `entry`, taking `argtypes` and returning int; raises
+    RuntimeError with nvcc's output when the source does not compile.
+    nvcc's output is kept in VARIANT_LOGS[name]."""
+    d = os.path.join(VARIANT_DIR, name)
+    os.makedirs(d, exist_ok=True)
+    src, so = os.path.join(d, "src.cu"), os.path.join(d, "lib.so")
+    with open(src, "w") as f:
+        f.write(text)
+    p = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *flags, "-shared", "-I",
+                          include, "-o", so, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+
+    def done():
+        log, _ = p.communicate()
+        VARIANT_LOGS[name] = log
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}\n{log}")
+        fn = getattr(ctypes.CDLL(so), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+    return done
+
+
+def probe_variant_caller(fn, takes_n_real: bool, table: torch.Tensor,
+                         hmeta):
+    """(idx_hi, idx_lo, win_valid, stash, n_real) -> (tagv, payv) through a
+    variant of the hashed probe (csrc/probe.cu) built by build_variant
+    with shkk_probe's arguments, or without n_real where not
+    `takes_n_real` (the entry point before it took it), on `table` laid
+    out as `hmeta` (classify.hashed.HashedMeta) says."""
+    def call(hi, lo, valid, stash, n_real):
+        tagv, payv = torch.empty((2, *lo.shape), dtype=torch.uint32,
+                                 device=lo.device).unbind(0)
+        rows = (n_real,) if takes_n_real else ()
+        check(fn(hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), lo.numel(),
+                 table.data_ptr(), hmeta.lgB, int(hmeta.entry16),
+                 hmeta.slots, stash.data_ptr(), stash.shape[0], *rows,
+                 tagv.data_ptr(), payv.data_ptr(), stream(lo.device)),
+              "probe variant")
+        return tagv, payv
+    return call
 
 
 def check(rc: int, name: str) -> None:

@@ -319,6 +319,6 @@ def test_floor_gathers_fold_rows_on_the_cpu(row_bytes):
         pidx >= 0, np.bitwise_xor.reduce(pay[np.maximum(pidx, 0)], axis=1), 0)
     assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
                           want.astype(np.uint32))
-    with pytest.raises(ValueError, match="not 8, 16 or 32"):
+    with pytest.raises(ValueError, match="not 4, 8, 16, 32, 64 or 128"):
         floors.rows(torch.zeros(8, dtype=torch.int32), torch.from_numpy(idx),
                     12)
