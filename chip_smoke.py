@@ -135,7 +135,21 @@ Phases, each printing its lines; any failure exits non-zero:
    bucket count and one below, 8 and 4 slots (every variant's probe equal
    to its plain version and its verdicts to the production layout's);
    and the bare gathers' 4-, 64- and 128-byte rows against their plain
-   versions.
+   versions. Last, (r) the K1 and K3 stage profilers and the FIX_CAP2
+   A/B, one after another in one process of their own at one batch
+   (65536 reads) under a time limit, L2 warm only:
+   scripts/profile_front_torch.py on the panel's batch (K1 cut into
+   timing-only variants of csrc/front.cu; the whole kernel's variant
+   equal to the front end and its plain version, at a power-of-two Bloom
+   size and at a multiple of 2^32),
+   scripts/profile_finish_torch.py on the panel's and the homolog's
+   (variants of csrc/finish.cu's warp pass; the whole one, the
+   sort-always one and the 84-column one equal to the finish and its
+   plain version) and scripts/ab_fixcap_torch.py on the homolog's (every
+   FIX_CAP2 cap's verdicts equal to the plain finish at that cap, and to
+   production's on its side of the batch's demand); every check of each
+   line must hold, and each ladder's rung ms prints on one line. The
+   variants are not kernels of the port and stay off the kernels line.
    The launch counters are zeroed before each run and read after it:
    (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
    xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
@@ -184,6 +198,7 @@ READ_LEN = 100
 N_PANEL_READS, N_HOMOLOG_READS, N_PAIRS = 500_000, 100_000, 50_000
 N_TXOME_READS, N_CLASSIC_READS = 500_000, 100_000
 N_BENCH_READS = 50_000  # (o): bench_gpu.py's panel, trimmed
+STAGE_READS = 65_536  # (r): one batch of each workload
 TXOME_GENES = 50_000
 N_CPU_CHECK, N_ORACLE_CHECK = 20_000, 2_000
 SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
@@ -1959,6 +1974,90 @@ def e2e_ab_harnesses(work, gathers, n_reads=N_BENCH_READS, timeout_s=120):
     return {"seconds": secs, "repro": repro, "layout": layout}
 
 
+def stage_ladder(rungs, order, key="device_ms"):
+    """'name ms' of each rung of a ladder that has a reading."""
+    return ", ".join(f"{r} {rungs[r][key]:.4f}" for r in order
+                     if rungs.get(r, {}).get(key) is not None)
+
+
+def e2e_stage_profiles(work, n_reads=STAGE_READS, timeout_s=300):
+    """(r) scripts/profile_front_torch.py (the panel's first batch),
+    profile_finish_torch.py (the panel's and the homolog's), both with the
+    L2 warm only, and ab_fixcap_torch.py (the homolog's) at `n_reads`, one
+    after another in one process of their own (one CUDA start-up), one
+    cache under `work`, with a time limit: each must exit 0 with every
+    check of its line held. Prints each ladder's rung ms on one line."""
+    cache = os.path.join(work, "stage_r")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    common = ["--reads", str(n_reads), "--cache", cache, "--reps", "3"]
+    runs = (("profile_front_torch", ["--workload", "panel", "--warm-only",
+                                     *common]),
+            ("profile_finish_torch", ["--warm-only", *common]),
+            ("ab_fixcap_torch", common))
+    code = (
+        "import importlib.util, sys\n"
+        "rcs = []\n"
+        f"for name, argv in {runs!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'scripts/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    rcs.append(mod.main(argv))\n"
+        "    sys.stdout.flush()\n"
+        "sys.exit(max(rcs))\n")
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env,
+                           capture_output=True, text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"(r): no end in {timeout_s} s") from e
+    found = []
+    for text in p.stdout.splitlines():
+        try:
+            found.append(json.loads(text))
+        except ValueError:
+            continue
+    lines = dict(zip((name for name, _ in runs), found))
+    bad = {name: [k for k, v in line.get("checks", {}).items()
+                  if v is not True] for name, line in lines.items()}
+    if (p.returncode != 0 or len(lines) != len(runs) or any(bad.values())
+            or not all(line.get("checks") for line in lines.values())):
+        sys.stderr.write(p.stderr[-4000:])
+        raise SmokeFailure(f"(r): exit {p.returncode}, {len(found)} lines "
+                           f"of {len(runs)}, checks failed {bad}")
+    front = lines["profile_front_torch"]
+    say(f"(r) K1 ladder, {front['workload']} B={front['batch_size']} "
+        f"L={front['max_read_len']} (device ms, L2 warm): "
+        + stage_ladder(front["rungs"], ("s", "d", "c", "h", "m", "m2", "l"))
+        + f"; furthest above its bound: {front['furthest']}; long reads "
+        f"{front['long_reads']['device_ms']:.4f}")
+    for wl, fin in lines["profile_finish_torch"]["workloads"].items():
+        say(f"(r) K3 ladder, {wl} (warp pass device ms, L2 warm): "
+            + stage_ladder(fin["rungs"], ("k", "s", "c", "f", "a1",
+                                          "sort-always", "a5"), "warp_ms")
+            + f"; whole K3 f {fin['rungs']['f']['device_ms']:.4f}, f0 (K1 + "
+            f"K2) {fin['f0']['device_ms']:.4f}, group pass "
+            + (f"{fin['rungs']['g']['device_ms']:.4f}" if "g" in fin["rungs"]
+               else "not run")
+            + f"; torch.sort {fin['sort_library']['device_ms']:.4f}; "
+            f"furthest above its bound: {fin['furthest']}; shares "
+            f"{json.dumps(fin['shares'])}")
+    fix = lines["ab_fixcap_torch"]
+    for batch in fix["batches"]:
+        say(f"(r) FIX_CAP2 A/B, homolog batch {batch['batch']} (impure "
+            f"{batch['impure']}): " + "; ".join(
+                f"cap {r['fix_cap2']} {r['branch']} K3 "
+                f"{r['k3_device_ms']:.4f} K4 {r['k4_device_ms']:.4f} ms, "
+                f"{r['pairs']} pairs, winner_pairs {r['winner_pairs_ms']:.2f}"
+                f" ms, {r['associations']} associations"
+                for r in batch["caps"]))
+    shutil.rmtree(cache, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    say(f"(r) the stage profilers and the FIX_CAP2 A/B: every check held; "
+        f"{secs:.1f} s")
+    return {"seconds": secs, **lines}
+
+
 def trace_busy(trace_dir):
     """(k)'s reading of its one trace, through shark_tpu_torch/utils/
     trace.py (what scripts/trace_report_torch.py prints): the card's busy
@@ -2279,6 +2378,7 @@ def main() -> int:
         e2e_stats["bench_gpu"] = e2e_bench_gpu(work)
         e2e_stats["profile_split"] = e2e_profile_split(work)
         e2e_stats["ab_harnesses"] = e2e_ab_harnesses(work, gathers)
+        e2e_stats["stage_profiles"] = e2e_stage_profiles(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry

@@ -18,8 +18,9 @@ device="cpu") runs the plain versions:
   reads (with jax), and its impure count the port's plain group count;
 - scripts/repro_contamination_torch.py prints every step, and every
   pass's bytes equal the first pass's;
-- each of the four runs on the card unless --cpu is given: without a
-  card it exits 1.
+- each of the four, and the K1 and K3 stage profilers and the FIX_CAP2
+  A/B (tests/test_torch_stage_profiles.py), runs on the card unless
+  --cpu is given: without a card it exits 1.
 """
 
 import json
@@ -238,7 +239,9 @@ def test_repro_contamination_prints_every_step(tiny, capsys):
 
 @pytest.mark.parametrize("name", ["ab_batch_torch", "ab_layout_torch",
                                   "homolog_split_torch",
-                                  "repro_contamination_torch"])
+                                  "repro_contamination_torch",
+                                  "profile_front_torch",
+                                  "profile_finish_torch", "ab_fixcap_torch"])
 def test_harness_without_a_card_exits_1(name, monkeypatch, capsys):
     # each runs on cuda:0 unless --cpu is given, and never falls back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
