@@ -135,7 +135,7 @@ Phases, each printing its lines; any failure exits non-zero:
    bucket count and one below, 8 and 4 slots (every variant's probe equal
    to its plain version and its verdicts to the production layout's);
    and the bare gathers' 4-, 64- and 128-byte rows against their plain
-   versions. Last, (r) the K1 and K3 stage profilers and the FIX_CAP2
+   versions. Then (r) the K1 and K3 stage profilers and the FIX_CAP2
    A/B, one after another in one process of their own at one batch
    (65536 reads) under a time limit, L2 warm only:
    scripts/profile_front_torch.py on the panel's batch (K1 cut into
@@ -148,8 +148,17 @@ Phases, each printing its lines; any failure exits non-zero:
    plain version) and scripts/ab_fixcap_torch.py on the homolog's (every
    FIX_CAP2 cap's verdicts equal to the plain finish at that cap, and to
    production's on its side of the batch's demand); every check of each
-   line must hold, and each ladder's rung ms prints on one line. The
-   variants are not kernels of the port and stay off the kernels line.
+   line must hold, and each ladder's rung ms prints on one line. Then
+   (s) the probe stage profilers the same way: scripts/profile_probe_torch.py
+   on the panel's batch with its classic/hashed A/B (--ab: classic at
+   L = 128 and 104, hashed at 104, verdicts equal) and on the homolog's
+   (K2 cut into timing-only variants of csrc/probe.cu; the whole one equal
+   to the probe and its plain version), profile_txome_torch.py --quick
+   (K6 and K5 cut into variants of csrc/xl.cu and csrc/classic.cu, the
+   whole ones equal to their kernels and plain versions) and
+   sort_bench_torch.py (the dedup's pieces; its result equal to the full
+   gather). The variants are not kernels of the port and stay off the
+   kernels line.
    The launch counters are zeroed before each run and read after it:
    (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
    xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
@@ -198,7 +207,7 @@ READ_LEN = 100
 N_PANEL_READS, N_HOMOLOG_READS, N_PAIRS = 500_000, 100_000, 50_000
 N_TXOME_READS, N_CLASSIC_READS = 500_000, 100_000
 N_BENCH_READS = 50_000  # (o): bench_gpu.py's panel, trimmed
-STAGE_READS = 65_536  # (r): one batch of each workload
+STAGE_READS = 65_536  # (r), (s): one batch of each workload
 TXOME_GENES = 50_000
 N_CPU_CHECK, N_ORACLE_CHECK = 20_000, 2_000
 SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
@@ -531,6 +540,19 @@ def stash_counts(stash):
     return int((~pad).sum()), stash.shape[0]
 
 
+def stash_hits(idx_hi, idx_lo, win_valid, stash):
+    """The valid windows whose position (lo, hi) is a stash row's that is
+    not padding."""
+    lo = idx_lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = idx_hi.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    st = stash.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hit = torch.zeros_like(win_valid)
+    for r in range(st.shape[0]):
+        if not bool((st[r] == 0xFFFFFFFF).all()):
+            hit |= (lo == st[r, 0]) & (hi == st[r, 1])
+    return hit & win_valid
+
+
 def resident_operands(idx_hi, idx_lo, win_valid, lgB):
     """P2's operands for the hashed probe's windows on an entry16 8-slot
     table of 2^lgB buckets: rows = bucket >> 4 (i32) and want = rest |
@@ -559,14 +581,8 @@ def probe_floor(args2, stash_rows, gathers):
 
     idx_hi, idx_lo, win_valid, table, stash, hmeta = args2
     lo = idx_lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    hi = idx_hi.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     real, padded = stash_counts(stash)
-    st = stash.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    in_stash = torch.zeros_like(win_valid)
-    for r in range(padded):
-        if not bool((st[r] == 0xFFFFFFFF).all()):
-            in_stash |= (lo == st[r, 0]) & (hi == st[r, 1])
-    in_stash &= win_valid
+    in_stash = stash_hits(idx_hi, idx_lo, win_valid, stash)
     out = {"stash_rows": real, "stash_rows_padded": padded,
            "stash_windows": int(in_stash.sum())}
     out["probe"] = timings(lambda: hashed.probe_hashed(*args2, stash_rows))
@@ -1980,20 +1996,13 @@ def stage_ladder(rungs, order, key="device_ms"):
                      if rungs.get(r, {}).get(key) is not None)
 
 
-def e2e_stage_profiles(work, n_reads=STAGE_READS, timeout_s=300):
-    """(r) scripts/profile_front_torch.py (the panel's first batch),
-    profile_finish_torch.py (the panel's and the homolog's), both with the
-    L2 warm only, and ab_fixcap_torch.py (the homolog's) at `n_reads`, one
-    after another in one process of their own (one CUDA start-up), one
-    cache under `work`, with a time limit: each must exit 0 with every
-    check of its line held. Prints each ladder's rung ms on one line."""
-    cache = os.path.join(work, "stage_r")
+def script_lines(phase, runs, timeout_s):
+    """The JSON lines of scripts/<name>.py's main(argv) for each (name,
+    argv) of `runs`, run one after another in one process of their own
+    (one CUDA start-up) with a time limit; raises SmokeFailure unless the
+    process exits 0 with one line a run and every check of every line
+    held."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    common = ["--reads", str(n_reads), "--cache", cache, "--reps", "3"]
-    runs = (("profile_front_torch", ["--workload", "panel", "--warm-only",
-                                     *common]),
-            ("profile_finish_torch", ["--warm-only", *common]),
-            ("ab_fixcap_torch", common))
     code = (
         "import importlib.util, sys\n"
         "rcs = []\n"
@@ -2005,26 +2014,42 @@ def e2e_stage_profiles(work, n_reads=STAGE_READS, timeout_s=300):
         "    rcs.append(mod.main(argv))\n"
         "    sys.stdout.flush()\n"
         "sys.exit(max(rcs))\n")
-    t0 = time.perf_counter()
     try:
         p = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env,
                            capture_output=True, text=True, timeout=timeout_s)
     except subprocess.TimeoutExpired as e:
-        raise SmokeFailure(f"(r): no end in {timeout_s} s") from e
-    found = []
+        raise SmokeFailure(f"{phase}: no end in {timeout_s} s") from e
+    lines = []
     for text in p.stdout.splitlines():
         try:
-            found.append(json.loads(text))
+            lines.append(json.loads(text))
         except ValueError:
             continue
-    lines = dict(zip((name for name, _ in runs), found))
-    bad = {name: [k for k, v in line.get("checks", {}).items()
-                  if v is not True] for name, line in lines.items()}
-    if (p.returncode != 0 or len(lines) != len(runs) or any(bad.values())
-            or not all(line.get("checks") for line in lines.values())):
+    bad = [[k for k, v in line.get("checks", {}).items() if v is not True]
+           for line in lines]
+    if (p.returncode != 0 or len(lines) != len(runs) or any(bad)
+            or not all(line.get("checks") for line in lines)):
         sys.stderr.write(p.stderr[-4000:])
-        raise SmokeFailure(f"(r): exit {p.returncode}, {len(found)} lines "
-                           f"of {len(runs)}, checks failed {bad}")
+        raise SmokeFailure(f"{phase}: exit {p.returncode}, {len(lines)} "
+                           f"lines of {len(runs)}, checks failed {bad}")
+    return lines
+
+
+def e2e_stage_profiles(work, n_reads=STAGE_READS, timeout_s=300):
+    """(r) scripts/profile_front_torch.py (the panel's first batch),
+    profile_finish_torch.py (the panel's and the homolog's), both with the
+    L2 warm only, and ab_fixcap_torch.py (the homolog's) at `n_reads`, one
+    cache under `work` (script_lines). Prints each ladder's rung ms on one
+    line."""
+    cache = os.path.join(work, "stage_r")
+    common = ["--reads", str(n_reads), "--cache", cache, "--reps", "3"]
+    runs = (("profile_front_torch", ["--workload", "panel", "--warm-only",
+                                     *common]),
+            ("profile_finish_torch", ["--warm-only", *common]),
+            ("ab_fixcap_torch", common))
+    t0 = time.perf_counter()
+    lines = dict(zip((name for name, _ in runs),
+                     script_lines("(r)", runs, timeout_s)))
     front = lines["profile_front_torch"]
     say(f"(r) K1 ladder, {front['workload']} B={front['batch_size']} "
         f"L={front['max_read_len']} (device ms, L2 warm): "
@@ -2056,6 +2081,69 @@ def e2e_stage_profiles(work, n_reads=STAGE_READS, timeout_s=300):
     say(f"(r) the stage profilers and the FIX_CAP2 A/B: every check held; "
         f"{secs:.1f} s")
     return {"seconds": secs, **lines}
+
+
+def e2e_probe_profiles(work, n_reads=STAGE_READS, timeout_s=300):
+    """(s) scripts/profile_probe_torch.py on the panel's first batch with
+    its classic/hashed A/B (--ab) and on the homolog's,
+    profile_txome_torch.py (--quick: no XL_SLOTS = 2 build) and
+    sort_bench_torch.py, all with the L2 warm only, at `n_reads`, one
+    cache under `work` (script_lines). Prints each ladder's rung ms on one
+    line."""
+    cache = os.path.join(work, "stage_s")
+    common = ["--reads", str(n_reads), "--cache", cache, "--reps", "3",
+              "--warm-only"]
+    runs = (("profile_probe_torch", ["--ab", *common]),
+            ("profile_probe_torch", ["--workload", "homolog", *common]),
+            ("profile_txome_torch", ["--quick", *common]),
+            ("sort_bench_torch", common))
+    t0 = time.perf_counter()
+    lines = script_lines("(s)", runs, timeout_s)
+    panel, homolog, txome, sort = lines
+    for k2 in (panel, homolog):
+        an, c = k2["anchors"], k2["counts"]
+        say(f"(s) K2 ladder, {k2['workload']} B={k2['batch_size']} "
+            f"L={k2['max_read_len']} (device ms, L2 warm): "
+            + stage_ladder(k2["rungs"], ("w", "b", "m", "p"))
+            + f"; furthest above its bound: {k2['furthest']}; P2 "
+            f"{an['resident_match']['device_ms']:.4f}, gather"
+            f"{an['gather']['row_bytes']} {an['gather']['device_ms']:.4f}, "
+            f"K1 {an['front']['device_ms']:.4f}; two-lane windows "
+            f"{c['two_lane_windows']}, stash windows {c['stash_windows']}, "
+            f"stash rows {c['stash_rows']} of {c['stash_rows_padded']}")
+    say("(s) classic/hashed A/B, panel (ms a batch with the fetch; device "
+        "ms, host ms a batch): " + "; ".join(
+            f"{name} {r['ms_a_batch']:.3f}; {r['device_ms_a_batch']:.4f}, "
+            f"{r['host_ms_a_batch']:.4f}"
+            for name, r in panel["ab"]["setups"].items())
+        + "; verdicts equal")
+    xl, k5 = txome["xl"], txome["classic"]
+    an = txome["anchors"]
+    say(f"(s) K6 ladder, txome {txome['genes']} genes (device ms, L2 warm): "
+        + stage_ladder(xl["rungs"], ("g", "x", "s"))
+        + f"; furthest: {xl['furthest']}; gather16 "
+        f"{an['gather16']['device_ms']:.4f}, K1 {an['front']['device_ms']:.4f}"
+        f"; side windows {xl['counts']['side_windows']}, flagged share "
+        f"{xl['counts']['flagged_share']:.4f}")
+    say("(s) K5 ladder, txome (device ms, L2 warm): "
+        + stage_ladder(k5["rungs"], ("r", "y"))
+        + f"; furthest: {k5['furthest']}; two-level gather "
+        f"{an['two_level']['device_ms']:.4f}, 8-byte words "
+        f"{an['gather8_words']['device_ms']:.4f}; call_packed xl "
+        f"{txome['whole_step']['xl']['device_ms']:.4f}, classic "
+        f"{txome['whole_step']['classic']['device_ms']:.4f}")
+    say("(s) sort bench (device ms, L2 warm): " + ", ".join(
+        f"{k} {v['device_ms']:.4f}" for k, v in sort["pieces"].items())
+        + f"; dedup_ms {sort['dedup_ms']:.4f} = "
+        f"{sort['dedup_over_gather_full']:.2f}x the full gather, "
+        f"{sort['dedup_over_k2']:.2f}x K2 "
+        f"({sort['panel_k2']['device_ms']:.4f})")
+    shutil.rmtree(cache, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    say(f"(s) the probe stage profilers, the A/B and the sort bench: every "
+        f"check held; {secs:.1f} s")
+    return {"seconds": secs, "probe_panel": panel, "probe_homolog": homolog,
+            "txome": txome, "sort": sort}
 
 
 def trace_busy(trace_dir):
@@ -2379,6 +2467,7 @@ def main() -> int:
         e2e_stats["profile_split"] = e2e_profile_split(work)
         e2e_stats["ab_harnesses"] = e2e_ab_harnesses(work, gathers)
         e2e_stats["stage_profiles"] = e2e_stage_profiles(work)
+        e2e_stats["probe_profiles"] = e2e_probe_profiles(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry

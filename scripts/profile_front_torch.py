@@ -314,6 +314,17 @@ def climb(rungs: dict, order, top: str, key: str = "device_ms") -> str:
     return furthest
 
 
+def climb_both(line: dict, rungs: dict, order, top: str, flushed: bool):
+    """line["furthest"] from climb over the cumulative rungs, and
+    line["furthest_flushed"] from their flushed readings when `flushed`
+    (climbed on copies, so that the warm fields stay)."""
+    line["furthest"] = climb(rungs, order, top)
+    if flushed:
+        line["furthest_flushed"] = climb(
+            {k: dict(v) for k, v in rungs.items()}, order, top,
+            "device_ms_flushed")
+
+
 def device_ms(fn, reps: int, flush=None, suffix: str = "") -> dict:
     """{"device_ms<suffix>", "device_ops<suffix>"[,
     "device_ms<suffix>_suspect"]} of timers.device_profile."""
@@ -431,11 +442,7 @@ def run(device, wl: str, reps: int, warm_only: bool = False) -> dict:
             checks[f"{r}_length_equals_front_end"] = torch.equal(got[3],
                                                                  want[3])
         log(f"{r}: {json.dumps({k: v for k, v in row.items() if 'ops' not in k})}")
-    line["furthest"] = climb(rungs, CUMULATIVE, "m")
-    if flush is not None:
-        line["furthest_flushed"] = climb(
-            {k: dict(v) for k, v in rungs.items()}, CUMULATIVE, "m",
-            "device_ms_flushed")
+    climb_both(line, rungs, CUMULATIVE, "m", flush is not None)
     for r, base in (("m2", "m"), ("l", "s")):
         rungs[r]["gap_ms"] = rungs[r]["device_ms"] - rungs[r]["bound_ms"]
         rungs[r]["vs_" + base + "_ms"] = (rungs[r]["device_ms"]

@@ -122,7 +122,8 @@ def two_level_plain(words, widx, pay, pidx) -> torch.Tensor:
     w = _fold(words.reshape(-1).view(torch.int32).view(-1, 2)[widx.long()])
     p = _fold(pay.reshape(-1).view(torch.int32).view(-1, 2)[
         pidx.clamp(min=0).long()])
-    return torch.where(pidx >= 0, w ^ p, w)
+    w, p = w.view(torch.int32), p.view(torch.int32)
+    return torch.where(pidx >= 0, w ^ p, w).view(torch.uint32)
 
 
 def two_level(words: torch.Tensor, widx: torch.Tensor, pay: torch.Tensor,

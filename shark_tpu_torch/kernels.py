@@ -294,6 +294,41 @@ def probe_variant_caller(fn, takes_n_real: bool, table: torch.Tensor,
     return call
 
 
+def xl_variant_caller(fn, table: torch.Tensor, side: torch.Tensor,
+                      side_stash: torch.Tensor, hmeta):
+    """(idx_hi, idx_lo, win_valid) -> (tagv, payv) through a variant of
+    the xl probe (csrc/xl.cu) built by build_variant with shkk_probe_xl's
+    arguments, on `table` and its side tables laid out as `hmeta` says;
+    both outputs are views of one allocation, as hashed.probe_xl makes
+    them."""
+    def call(hi, lo, valid):
+        n = lo.numel()
+        n4 = (n + 3) & ~3
+        out = torch.empty((n4 + n,), dtype=torch.uint32, device=lo.device)
+        tagv, payv = out[:n].view(lo.shape), out[n4:].view(lo.shape)
+        check(fn(hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), n,
+                 table.data_ptr(), hmeta.lgB, side.data_ptr(),
+                 hmeta.side_lgB, int(hmeta.has_side), side_stash.data_ptr(),
+                 side_stash.shape[0], tagv.data_ptr(), payv.data_ptr(),
+                 stream(lo.device)), "xl probe variant")
+        return tagv, payv
+    return call
+
+
+def classic_variant_caller(fn, bf_rank: torch.Tensor, pay: torch.Tensor):
+    """(idx_hi, idx_lo, win_valid) -> (tagv, payv) through a variant of
+    the classic probe (csrc/classic.cu) built by build_variant with
+    shkk_classic's arguments."""
+    def call(hi, lo, valid):
+        tagv, payv = torch.empty_like(lo), torch.empty_like(lo)
+        check(fn(hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), lo.numel(),
+                 bf_rank.data_ptr(), pay.data_ptr(), tagv.data_ptr(),
+                 payv.data_ptr(), stream(lo.device)),
+              "classic probe variant")
+        return tagv, payv
+    return call
+
+
 def check(rc: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error (a refused launch
     never runs, and torch.cuda.synchronize() would not report it)."""
