@@ -159,10 +159,27 @@ Phases, each printing its lines; any failure exits non-zero:
    sort_bench_torch.py (the dedup's pieces; its result equal to the full
    gather). The variants are not kernels of the port and stay off the
    kernels line.
+   Last, (t) the inputs the soak never draws: K1 -> K2 -> K3 -> K4 on the
+   homolog index and K1 -> K6 and K1 -> K5 on the transcriptome's ((d)'s
+   saved index and xl tables), each held to its plain version (exact) at
+   L = 264, 1024, 2048, 16384 and 16392 (B = 64, 8 from 16384 on; K3 and
+   K4 at max_winners 16, 2 and 1), one line an L with the reads a block
+   of K1 takes there (csrc/front.cu's shared-memory halving); EDGE_SEEDS
+   of tests/test_torch_fuzz.py's run_edges on the card (reads of 90 to
+   20000 bases, mates from the gene, --max-read-len auto, rounded and not
+   a multiple of 8, -s, max_winners 1, 2 and 16 against every gene written
+   two or three times, batches of 32 and 8192, at -b 1), which together
+   must cover EDGE_COVERS; and the probe-table cache of the hashed and xl
+   layouts after --save-index, loaded back with one byte of the table
+   flipped (the crc rejects it) and with another FASTA's tables in its
+   slot (the digest rejects them): each run rebuilds and re-saves the
+   tables and writes the fresh run's bytes.
    The launch counters are zeroed before each run and read after it:
    (a)-(c), (h) and (n) launch the hashed path's kernels, (d) and (i) the
    xl path's, (e) the classic path's, (f) and (g) the sharded path's, (k)
-   (a)'s exactly, (j) none, (m) every classify kernel;
+   (a)'s exactly, (j) none, (m) every classify kernel, (t)'s edge seeds
+   every layout's probe, the finish and K4 (no sharded kernel), its cache
+   runs the hashed and xl paths';
 5. the port's counterparts of the two Pallas experiments, through their
    entry points at their default sizes (shark_tpu_torch.experiments:
    gather_tiles.main, 2^20 random 512-byte tiles of a 1 GiB table;
@@ -177,7 +194,7 @@ Phases, each printing its lines; any failure exits non-zero:
    launch these two kernels.
 
 The last lines are the kernels' JSON record (launches summed over
-(a)-(n) and phase 5), the nvidia-smi line, and
+(a)-(t) and phase 5), the nvidia-smi line, and
 {"ok": true, "device": {...}}. --quick stops after phase 3 at one shape
 (a first check of new kernels), and prints no result line. --out DIR also
 writes the kernels' record and the end-to-end stats there.
@@ -214,6 +231,10 @@ SHAPES = [(8192, 104), (8192, 208), (65536, 104), (65536, 208)]
 RECORD_SHAPE = (65536, 104)  # bench.py's batch: the shape the record holds
 CLI_SHAPE = (8192, 104)  # the CLI's batch: K1-K4 are recorded here too
 LONG_SHAPE = (64, 32768)  # reads over 16384 bases: K1's long-read kernel
+FRONT_MAX_SHORT_L = 16384  # csrc/front.cu kMaxShortL
+# (t): K1-K6 past the soak's L = 256: each rule of pipeline._round_len, the
+# staged front end's last length and the long-read kernel's first
+LONG_LS = (264, 1024, 2048, 16384, 16392)
 REPS = 7
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM. For the
@@ -258,6 +279,8 @@ PATH_KERNELS = {
     # (m): every layout over its seeds (run_seed checks each run's own)
     "soak": ("front", "probe", "probe_xl", "classic", "shard_route",
              "shard_probe", "shard_return", "finish", "pairs"),
+    # (t): the edge seeds, every replicated layout (run_edges checks each)
+    "edges": ("front", "probe", "probe_xl", "classic", "finish", "pairs"),
     "gather_tiles": ("gather_tiles",),
     "resident_match": ("resident_match",),
 }
@@ -272,6 +295,18 @@ SHARDS = 8
 SOAK_SEEDS = (0, 2, 4, 5, 7, 8, 10, 11, 21, 23)
 SOAK_COVERS = ("hashed", "xl", "classic", "sharded", "replicated", "reprobe",
                "paired", "gz", "minq10", "tie_pairs", "groups")
+# (t)'s seeds of tests/test_torch_fuzz.py's run_edges: 4 (band 0, an
+# emitting innie pair, max_winners 1: the host recompute), 9 (band 1, auto,
+# B = 8192), 33 (a read of 19849 bases, auto: the Python I/O at L =
+# 32768), 53 (--max-read-len 193: the unpacked engine path, B = 8192,
+# max_winners 16) and 54 (band 2 at L = 4096, -s, max_winners 2), on the
+# classic, hashed and xl layouts; and what they must cover together
+# (edge_covers)
+EDGE_SEEDS = (4, 9, 33, 53, 54)
+EDGE_COVERS = ("band0", "band1", "band2", "band3", "auto", "rounded",
+               "unpacked", "unpacked_engine", "auto_python", "pair_emits",
+               "single", "host_rows", "W1", "W2", "W16", "B32", "B8192",
+               "hashed", "xl", "classic")
 CARD = torch.device("cuda", 0)  # the replicated runs' device, twice
 
 
@@ -1777,6 +1812,19 @@ def e2e_native_backend(work):
     return stats
 
 
+@functools.lru_cache(maxsize=None)
+def fuzz_module():
+    """tests/test_torch_fuzz.py, loaded by path: run_seed for (m),
+    run_edges for (t)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz", os.path.join(HERE, "tests", "test_torch_fuzz.py"))
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    return fuzz
+
+
 def e2e_soak(work, launches):
     """(m) tests/test_torch_fuzz.py's run_seed on cuda:0 for SOAK_SEEDS:
     each seed's random workload through the device path (native engine,
@@ -1785,15 +1833,11 @@ def e2e_soak(work, launches):
     modes' FASTQs, each device run's layout kernels launched. The seeds
     together must cover SOAK_COVERS; their launches go to
     launches["m"]."""
-    import importlib.util
     import traceback
 
     from shark_tpu_torch import kernels
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_fuzz", os.path.join(HERE, "tests", "test_torch_fuzz.py"))
-    fuzz = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fuzz)
+    fuzz = fuzz_module()
     say("soak (m) seeds: " + " ".join(map(str, SOAK_SEEDS)))
     total = dict.fromkeys(kernels.KERNELS, 0)
     seen = set()
@@ -2146,6 +2190,281 @@ def e2e_probe_profiles(work, n_reads=STAGE_READS, timeout_s=300):
             "txome": txome, "sort": sort}
 
 
+def front_block_reads(L: int, optin: int):
+    """Reads a block of K1 takes at L and its shared memory: csrc/front.cu's
+    front_smem and its halving (32 reads, halved until the block fits the
+    opt-in limit); past kMaxShortL the long-read kernel, one read a block
+    and no shared table."""
+    if L > FRONT_MAX_SHORT_L:
+        return 1, 0
+    words = ((L + 31) >> 5) + 2
+
+    def smem(reads):
+        return (((reads * (L >> 2) + 15) & ~15)
+                + ((reads * (L >> 3) + 15) & ~15) + 8 * words * 20
+                + 32 * words * 4)
+
+    reads = 32
+    if smem(reads) > 48 * 1024:
+        while reads > 1 and smem(reads) > optin:
+            reads >>= 1
+    return reads, smem(reads)
+
+
+def long_codes(rng, genes, B, L):
+    """Byte codes [B, L] of reads of L/2 to L bases (the first L), each
+    pieces of random genes on random strands (a quarter of the reads all of
+    one gene), 1% N; invalid padding."""
+    from shark_tpu_torch.ops.kmers import BYTE_TO_CODE
+
+    codes = np.full((B, L), 4, np.uint8)
+    lens = rng.integers(L // 2, L + 1, size=B)
+    lens[0] = L
+    for b in range(B):
+        one = rng.random() < 0.25
+        g0 = int(rng.integers(0, len(genes)))
+        parts, n = [], 0
+        while n < lens[b]:
+            g = genes[g0 if one else int(rng.integers(0, len(genes)))]
+            m = int(rng.integers(100, len(g) + 1))
+            s = int(rng.integers(0, len(g) - m + 1))
+            piece = g[s:s + m]
+            parts.append(COMP[piece[::-1]] if rng.random() < 0.5 else piece)
+            n += m
+        codes[b, :lens[b]] = BYTE_TO_CODE[np.concatenate(parts)[:lens[b]]]
+    codes[rng.random((B, L)) < 0.01] = 4
+    return codes
+
+
+def check_long_kernels(hindex, hgenes, tx_idx, tgenes):
+    """(t) K1 -> K2 -> K3 -> K4 on the homolog index, and K1 -> K6 and
+    K1 -> K5 on the transcriptome's (the index (d) saved, its xl tables
+    from (d)'s cache), each against its plain version (exact) at the
+    lengths LONG_LS, B = 64 (8 from 16384 on); K3 and K4 at
+    max_winners 16, 2 and 1. One line an L, with the reads a block of K1
+    took there. Returns {L: line fields}."""
+    from shark_tpu_torch import kernels
+    from shark_tpu_torch.classify import hashed, step
+    from shark_tpu_torch.classify.step import Classifier
+    from shark_tpu_torch.index.structure import SharkIndex
+
+    optin = kernels.lib().shkk_max_smem_optin()
+    hclf = Classifier(hindex, max_winners=16, c=C)
+    tindex = SharkIndex.load(tx_idx)
+    xclf = Classifier(tindex, max_winners=16, c=C,
+                      probe_opts={"cache_dir": tx_idx + ".tables"})
+    need(xclf.probe == "xl", f"(t) transcriptome: probe {xclf.probe}")
+    cclf = Classifier(tindex, max_winners=16, c=C, probe="classic")
+    rng = np.random.default_rng(2031)
+    out = {}
+    for L in LONG_LS:
+        B = 8 if L >= FRONT_MAX_SHORT_L else 64
+        reads, smem = front_block_reads(L, optin)
+        line = {"B": B, "front_reads_a_block": reads, "front_smem": smem}
+        for name, clf, genes in (("homolog", hclf, hgenes),
+                                 ("txome", xclf, tgenes)):
+            meta, thresh = clf._geometry(L)
+            codes = torch.from_numpy(long_codes(rng, genes, B, L)).to(CARD)
+            packed, vmask = step.pack_codes(codes)
+            k1 = step.front_end(packed, vmask, meta)
+            same(f"(t) front_end L={L} {name}", k1,
+                 step.front_end_plain(packed, vmask, meta))
+            idx_hi, idx_lo, win_valid, length = k1
+            need(bool(win_valid[0].any()), f"(t) L={L}: no valid window")
+            if name == "txome":
+                args6 = (idx_hi, idx_lo, win_valid, xclf.dix.table,
+                         xclf.dix.side, xclf.dix.side_stash, xclf._hmeta)
+                k6 = hashed.probe_xl(*args6)
+                same(f"(t) probe_xl L={L}", k6,
+                     hashed.probe_xl_plain(*args6))
+                cdix = cclf.dix
+                args5 = (idx_hi, idx_lo, win_valid, cdix.bf_rank, cdix.pay)
+                same(f"(t) probe_tags L={L}", step.probe_tags(*args5),
+                     step.probe_tags_plain(*args5))
+                line["txome_hits"] = int((k6[0] != 0).sum())
+                continue
+            dix, hmeta = clf.dix, clf._hmeta
+            args2 = (idx_hi, idx_lo, win_valid, dix.table, dix.stash, hmeta)
+            tagv, payv = hashed.probe_hashed(*args2, dix.stash_rows)
+            same(f"(t) probe_hashed L={L}", (tagv, payv),
+                 hashed.probe_hashed_plain(*args2))
+            for W in (16, 2, 1):
+                kw3 = dict(rows3=dix.rows3, ext_mat=dix.ext_mat, meta=meta,
+                           max_winners=W, L=L, has_rows=hmeta.has_rows)
+                args3 = (tagv, payv, length, thresh)
+                k3 = step.finish_from_tags(*args3, **kw3)
+                n_block = step.finish_heavy_count()
+                same(f"(t) finish_from_tags L={L} W={W}", k3[:3],
+                     step.finish_from_tags_plain(*args3, **kw3)[:3])
+                cap, total = pair_cap(k3[0], B, W)
+                same(f"(t) extract_pairs L={L} W={W}",
+                     [step.extract_pairs(k3[0], k3[1], cap)],
+                     [step.extract_pairs_plain(k3[0], k3[1], cap)])
+                nw = (k3[0].to(torch.int64) >> 16) & 31
+                line[f"W{W}"] = {"block_reads": n_block, "pairs": total,
+                                 "over_W": int((nw > W).sum())}
+        say(f"(t) kernels at L={L} B={B}: K1 (front_end, {reads} reads a "
+            f"block, {smem} B shared), K2, K3 and K4 (max_winners 16, 2, "
+            f"1) on the homolog index, K6 and K5 on the transcriptome's, "
+            f"each equal to its plain version; {json.dumps(line)}")
+        out[L] = line
+    del hclf, xclf, cclf, tindex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def e2e_edge_seeds(work, launches):
+    """(t) tests/test_torch_fuzz.py's run_edges on cuda:0 for EDGE_SEEDS
+    (the CLI's Bloom size): reads of 90 to 20000 bases, mates from the
+    gene, --max-read-len auto, rounded and not a multiple of 8, -s,
+    max_winners 1, 2 and 16 on the ties pass, batches of 32 and 8192, every
+    output equal to the oracle's and to the other modes' FASTQs, each
+    device run's layout kernels launched. The seeds together must cover
+    EDGE_COVERS; their launches go to launches["t"]."""
+    import traceback
+
+    from shark_tpu_torch import kernels
+
+    fuzz = fuzz_module()
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    seen = set()
+    t0 = time.perf_counter()
+    for seed in EDGE_SEEDS:
+        d = os.path.join(work, "edges", str(seed))
+        os.makedirs(d)
+        t_seed = time.perf_counter()
+        try:
+            r = fuzz.run_edges(d, seed, CARD)
+        except Exception as e:
+            traceback.print_exc()
+            raise SmokeFailure(f"(t) edge seed {seed}: {type(e).__name__}: "
+                               f"{e}") from e
+        shutil.rmtree(d)
+        for name, n in r["launches"].items():
+            total[name] += n
+        seen |= fuzz.edge_covers(r)
+        say(f"(t) edge seed {seed}: ok band={r['band']} "
+            f"longest={r['longest']} L={r['L']} lens={r['lens']} "
+            f"max_read_len={r['max_read_len']} engine={r['engine']} "
+            f"packed={r['packed']} single={r['single']} "
+            f"W={r['max_winners']} B={r['batch_size']} layout={r['layout']} "
+            f"paired={r['paired']} pair_emits={r['pair_emits']} "
+            f"host_rows={r['host_rows']} group_rows={r['group_rows']} "
+            f"reads={r['n_reads']} assoc={r['associations']} "
+            f"({time.perf_counter() - t_seed:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    missing = [c for c in EDGE_COVERS if c not in seen]
+    need(not missing, f"(t) the edge seeds cover none of {missing}")
+    launches["t"] = ("edges", total)
+    return {"seeds": list(EDGE_SEEDS), "covers": sorted(seen),
+            "seconds": time.perf_counter() - t0}
+
+
+def e2e_table_cache(work, launches):
+    """(t) the probe-table cache on the card, for the hashed layout (auto
+    on a 200-gene panel) and the xl layout (--probe xl): a --save-index
+    run, then --load-index (a) with one byte of the cached table flipped,
+    which the crc check must reject, and (b) with the cache slot holding
+    the tables of another FASTA, which the digest must reject; both
+    rebuild and re-save the tables and write the fresh run's bytes."""
+    import contextlib
+    import io
+
+    from shark_tpu_torch import kernels
+    from shark_tpu_torch.classify import table_cache
+    from shark_tpu_torch.index.structure import SharkIndex
+
+    rng = np.random.default_rng(2032)
+    genes = {tag: panel_genes(rng, n_genes=200) for tag in ("a", "b")}
+    reads = panel_reads(rng, genes["a"], 20_000)
+    out = {}
+    for layout, flags in (("hashed", []), ("xl", ["--probe", "xl"])):
+        d = os.path.join(work, "table_cache", layout)
+        fa, files = write_workload(d, genes["a"], b"A", reads, subsets=())
+        fb = os.path.join(d, "other.fa")
+        write_fasta(fb, genes["b"], b"B")
+        idx, other = os.path.join(d, "index"), os.path.join(d, "other")
+        kernels.LAUNCHES.reset()
+        fresh = run_tag(d, fa, files, "all", "fresh",
+                        ["--save-index", idx, *flags])
+        run_cli(["-r", fb, "-1", files["all", "1"],
+                 "-o", os.path.join(d, "other.1.fq"),
+                 "--ssv", os.path.join(d, "other.ssv"), "-k", str(K),
+                 "--save-index", other, *flags])
+        table_cache.join_pending()
+        launches[f"t-cache-{layout}"] = (
+            "panel" if layout == "hashed" else "xl",
+            kernels.LAUNCHES.snapshot())
+        need(fresh["probe"] == layout, f"(t) cache: probe {fresh['probe']}")
+        index = SharkIndex.load(idx)
+        probe = None if layout == "hashed" else "xl"
+        cache = idx + ".tables"
+        need(table_cache.load_tables(cache, index, probe) is not None,
+             f"(t) cache {layout}: the saved tables do not load")
+        with open(os.path.join(d, "fresh.ssv"), "rb") as f:
+            want = f.read()
+        for case in ("flipped", "other"):
+            if case == "flipped":
+                path = os.path.join(cache, "table.npy")
+                with open(path, "r+b") as f:
+                    f.seek(os.path.getsize(path) // 2)
+                    b = f.read(1)
+                    f.seek(-1, os.SEEK_CUR)
+                    f.write(bytes([b[0] ^ 0xFF]))
+            else:
+                shutil.rmtree(cache)
+                shutil.copytree(other + ".tables", cache)
+                with open(os.path.join(cache, "meta.json")) as f:
+                    key = json.load(f)["key"]
+                need(key["digest"] != table_cache.index_digest(index),
+                     f"(t) cache {layout}: the other FASTA's digest matches")
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                need(table_cache.load_tables(cache, index, probe) is None,
+                     f"(t) cache {layout} {case}: the damaged cache loads")
+            need(case == "other" or "corrupt" in err.getvalue(),
+                 f"(t) cache {layout}: no crc rejection ({err.getvalue()})")
+            stats = run_tag(d, fa, files, "all", case,
+                            ["--load-index", idx, *flags])
+            table_cache.join_pending()
+            need(stats["probe"] == layout, f"(t) cache {case}: {stats}")
+            for ext in ("ssv", "1.fq"):
+                with open(os.path.join(d, f"{case}.{ext}"), "rb") as f, \
+                        open(os.path.join(d, f"fresh.{ext}"), "rb") as g:
+                    need(f.read() == g.read(),
+                         f"(t) cache {layout} {case}: {ext} differs from "
+                         "the fresh run's")
+            need(table_cache.load_tables(cache, index, probe) is not None,
+                 f"(t) cache {layout} {case}: the tables were not re-saved")
+        out[layout] = {"associations": want.count(b"\n"),
+                       "reads": len(reads)}
+        shutil.rmtree(d)
+    say(f"(t) table cache on the card: hashed and xl, a flipped byte "
+        f"(crc) and another FASTA's tables (digest) each rejected, rebuilt, "
+        f"re-saved, the fresh run's bytes; {json.dumps(out)}")
+    return out
+
+
+def e2e_edges(work, hindex, hgenes, tx_idx, tgenes, launches):
+    """(t): the kernels at long L, EDGE_SEEDS of the edge pass, and the
+    damaged table cache."""
+    t0 = time.perf_counter()
+    kern = check_long_kernels(hindex, hgenes, tx_idx, tgenes)
+    t1 = time.perf_counter()
+    seeds = e2e_edge_seeds(work, launches)
+    t2 = time.perf_counter()
+    cache = e2e_table_cache(work, launches)
+    secs = time.perf_counter() - t0
+    say(f"(t) the edges: kernels at L = {list(LONG_LS)} in {t1 - t0:.1f} s, "
+        f"{len(EDGE_SEEDS)} edge seeds in {t2 - t1:.1f} s (covering "
+        f"{' '.join(seeds['covers'])}), the table cache in "
+        f"{time.perf_counter() - t2:.1f} s; {secs:.1f} s")
+    return {"seconds": secs, "kernels": kern, "seeds": seeds,
+            "table_cache": cache}
+
+
 def trace_busy(trace_dir):
     """(k)'s reading of its one trace, through shark_tpu_torch/utils/
     trace.py (what scripts/trace_report_torch.py prints): the card's busy
@@ -2468,6 +2787,9 @@ def main() -> int:
         e2e_stats["ab_harnesses"] = e2e_ab_harnesses(work, gathers)
         e2e_stats["stage_profiles"] = e2e_stage_profiles(work)
         e2e_stats["probe_profiles"] = e2e_probe_profiles(work)
+        e2e_stats["edges"] = e2e_edges(work, hindex, hgenes,
+                                       os.path.join(tx_dir, "index"), tgenes,
+                                       launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     e2e_stats["txome"]["geometry_phase3"] = geometry
@@ -2489,7 +2811,7 @@ def main() -> int:
                      f"the {path} path launched the {name} kernel")
     total = {name: sum(c[name] for _, c in launches.values())
              for name in KERNEL_INFO}
-    say(f"launches over (a)-(n) and phase 5: {json.dumps(total)} (hashed "
+    say(f"launches over (a)-(t) and phase 5: {json.dumps(total)} (hashed "
         f"path after (a): {json.dumps(a)}, after (b): {json.dumps(b)})")
 
     kernels_line = {"kernels": []}

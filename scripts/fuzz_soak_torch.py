@@ -12,14 +12,23 @@ its layout; then the ties pass (every gene written two or three times).
 The per-seed body is loaded from the test file, so the soak certifies
 exactly what the pytest gate does.
 
-Usage: python3 scripts/fuzz_soak_torch.py [n_seeds=100] [start_seed=10000]
-       [--cpu]
+With --edges each seed runs the file's edge pass instead (run_edges): reads
+of 90 to 20000 bases in four bands of the padded-length rules, mate 2 from
+the gene of mate 1, --max-read-len 0, rounded or not a multiple of 8 (the
+native engine's unpacked path), -s, max_winners 1, 2 or 16 on the ties
+pass (reads tied across more genes than the list holds take the host
+recompute) and batches of 32 or 8192 reads, at the CLI's Bloom size.
+
+Usage: python3 scripts/fuzz_soak_torch.py [--edges] [n_seeds=100]
+       [start_seed=10000] [--cpu]
 
 Runs on cuda:0 unless --cpu is given; without a card, or when the native
 engine or the kernel library does not build, it exits 2 and never falls
 back to the CPU. Prints one line per seed (its layout, its extra path,
-whether reprobe fired, its seconds) and a summary line; exits 1 on any
-failure, naming the failing seeds. Imports no jax.
+whether reprobe fired, its seconds; with --edges its band, padded lengths,
+--max-read-len kind, -s, max_winners, batch size and host-recomputed rows)
+and a summary line that counts the seeds by what they covered; exits 1 on
+any failure, naming the failing seeds (and their bands). Imports no jax.
 """
 
 import argparse
@@ -76,12 +85,16 @@ def main(argv=None) -> int:
     ap.add_argument("start_seed", nargs="?", type=int, default=10000)
     ap.add_argument("--cpu", action="store_true",
                     help="soak the plain PyTorch versions on the host")
+    ap.add_argument("--edges", action="store_true",
+                    help="run the edge pass (run_edges) on each seed")
     args = ap.parse_args(argv)
     device, why = _ready(args.cpu)
     if device is None:
         print(f"[soak] {why}", flush=True)
         return 2
     fuzz = _load_fuzz_mod()
+    if args.edges:
+        return _soak_edges(fuzz, device, args.n_seeds, args.start_seed)
     t0 = time.time()
     failed = []
     seen = {}
@@ -119,6 +132,52 @@ def main(argv=None) -> int:
         + (f" (seeds {' '.join(map(str, failed))})" if failed else "")
         + f", {time.time() - t0:.0f} s; seeds passed by layout, extra path, "
         + "reprobe and GROUP verdicts of the ties pass: "
+        + " ".join(f"{k}={v}" for k, v in sorted(seen.items())),
+        flush=True,
+    )
+    return 1 if failed else 0
+
+
+def _soak_edges(fuzz, device, n_seeds: int, start: int) -> int:
+    """The edge pass over seeds start .. start + n_seeds - 1."""
+    t0 = time.time()
+    failed = []
+    seen = {}
+    for i in range(n_seeds):
+        seed = start + i
+        t_seed = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            band = fuzz.draw_edges(tmp, seed)["band"]
+            try:
+                r = fuzz.run_edges(tmp, seed, device)
+            except Exception:
+                failed.append(f"{seed} (band {band})")
+                print(f"[soak] edge seed {seed} band {band} FAILED",
+                      flush=True)
+                traceback.print_exc()
+                continue
+        for key in fuzz.edge_covers(r):
+            seen[key] = seen.get(key, 0) + 1
+        path = ("packed" if r["packed"] else "u8") if r["engine"] else "python"
+        print(
+            f"[soak] edge seed {seed} ok band={r['band']} "
+            f"longest={r['longest']} L={','.join(map(str, r['L']))} "
+            f"lens={r['lens']} max_read_len={r['max_read_len']} "
+            f"engine={path} "
+            f"single={int(r['single'])} W={r['max_winners']} "
+            f"B={r['batch_size']} layout={r['layout']} "
+            f"paired={int(r['paired'])} pair_emits={r['pair_emits']} "
+            f"host_rows={r['host_rows']} group_rows={r['group_rows']} "
+            f"reads={r['n_reads']} assoc={r['associations']} "
+            f"({i + 1}/{n_seeds}, {time.time() - t_seed:.1f} s)",
+            flush=True,
+        )
+    print(
+        f"[soak] edges done on {device}: {n_seeds} seeds "
+        f"({start}..{start + n_seeds - 1}), {len(failed)} failures"
+        + (f" (seeds {', '.join(failed)})" if failed else "")
+        + f", {time.time() - t0:.0f} s; seeds passed by band, max_winners, "
+        "batch size, --max-read-len kind, layout and path: "
         + " ".join(f"{k}={v}" for k, v in sorted(seen.items())),
         flush=True,
     )

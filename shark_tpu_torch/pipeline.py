@@ -18,6 +18,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from shark_tpu_torch import kernels
 from shark_tpu_torch.classify.step import (
     PACK_EMIT_SHIFT,
     PACK_GRP_SHIFT,
@@ -45,6 +46,11 @@ FastqRecord = Tuple[str, bytes, bytes]
 # longest fused read exceeds this uses the Python per-batch-padded path
 # instead (short-read RNA-Seq — this tool's domain — sits far below it).
 AUTO_NATIVE_MAX_LEN = 2048
+
+# Rows the drain recomputed with the host oracle (a read tied across more
+# genes than max_winners, or a verdict the device flagged as overflowed),
+# counted since the last reset; the tests read it to know the path ran.
+HOST_ROWS = kernels.LaunchCounter(("oracle",))
 
 
 def _round_len(n: int, k: int) -> int:
@@ -402,6 +408,7 @@ def _winner_pairs_base(
     g_list: List[int] = []
     for j, i in enumerate(rows):
         if overflow[j]:
+            HOST_ROWS.add("oracle")
             row = (
                 _unpack_row_np(codes[0][i], codes[1][i])
                 if isinstance(codes, tuple)

@@ -36,6 +36,7 @@ from shark_tpu_torch import config
 from shark_tpu_torch.classify import step
 from shark_tpu_torch.io import native
 from test_torch_profile_e2e import _script
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 READS = 2000
 TINY = dict(N_GENES=20, HOMOLOG_GENES=24, BATCH=512)

@@ -27,6 +27,7 @@ import torch
 import bench_gpu
 from shark_tpu_torch import config
 from shark_tpu_torch.classify import step
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKLOADS = bench_gpu.WORKLOADS

@@ -22,6 +22,7 @@ from shark_tpu_torch.classify import step as tstep  # noqa: E402
 from shark_tpu_torch.convert import index_from_arrays  # noqa: E402
 from test_torch_probe import workload  # noqa: E402,F401
 from test_torch_xl import _fuzz_workload  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

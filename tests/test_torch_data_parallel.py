@@ -37,6 +37,7 @@ from test_e2e_fuzz import BASES, _random_workload  # noqa: E402
 from test_groups import _encode, _sample, family_workload  # noqa: E402,F401
 from test_torch_pipeline import _outputs  # noqa: E402
 from test_torch_sharded import _planar  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAMES = ("packed", "winners", "best_cov", "length")
 DEVICE_LISTS = {"two": ["cpu", "cpu:0"], "four": ["cpu"] * 4,

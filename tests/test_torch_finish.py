@@ -30,6 +30,7 @@ from shark_tpu_torch.convert import index_from_arrays  # noqa: E402
 from test_groups import _encode, _sample, family_workload  # noqa: E402,F401
 from test_homology import _high_degree_workload  # noqa: E402
 from test_torch_cuda import family_index, finish_batch  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from shark_tpu.index.build import build_index  # noqa: E402
 

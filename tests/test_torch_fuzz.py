@@ -33,14 +33,16 @@ inside the test.
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from shark_tpu_torch import kernels
+from shark_tpu_torch import kernels, pipeline
 from shark_tpu_torch.classify.oracle import build_oracle_index, classify_read
 from shark_tpu_torch.classify.step import Classifier
 from shark_tpu_torch.config import SharkConfig
@@ -50,6 +52,11 @@ from shark_tpu_torch.parallel.data_parallel import DataParallelClassifier
 from shark_tpu_torch.parallel.sharded_bf import ShardedBFClassifier
 from shark_tpu_torch.pipeline import load_or_build_index, run_pipeline
 from shark_tpu_torch.utils.timers import PhaseTimer
+
+try:  # pytest; the soak and chip_smoke.py load this file by path
+    from test_torch_threads import one_torch_thread  # noqa: F401
+except ImportError:
+    pass
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -157,12 +164,11 @@ def _random_workload(rng, tmp_path, seed):
     }
 
 
-def _oracle_ssv(w, c=C):
+def _oracle_ssv(w, c=C, size_bits=1 << 33, single=False):
     """The expected ssv lines at threshold c, from the port's pure-host
     oracle, with the reference's quality mask (FastqSplitter.hpp:106: a
     base under the cut has 64 taken off its byte, which no base code
-    survives)."""
-    size_bits = 1 << 33
+    survives); `single`: -s, one winner or none."""
     oracle = build_oracle_index(w["genes"], w["k"], size_bits)
     lines = []
     for i, r1 in enumerate(w["reads1"]):
@@ -177,7 +183,7 @@ def _oracle_ssv(w, c=C):
                 if qual[j] < cut:
                     seq[j] = (seq[j] - 64) % 256
         wins, _, _ = classify_read(
-            oracle, encode_bytes(bytes(seq)), c, False
+            oracle, encode_bytes(bytes(seq)), c, single
         )
         for g in wins:
             lines.append(f"r{i:04d} g{g}\n")
@@ -217,6 +223,26 @@ def _tied(w, tmp_path, seed):
     fa = tmp_path / f"t{seed}.fa"
     fa.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), q) for n, q in genes))
     return dict(w, genes=genes, fa=fa)
+
+
+def _outputs(prefix: Path, paired: bool):
+    """The ssv and FASTQ bytes a run wrote under `prefix` (b"" for mate 2
+    of a single-end run)."""
+    return tuple(Path(f"{prefix}.{x}").read_bytes()
+                 if x != "2.fq" or paired else b""
+                 for x in ("ssv", "1.fq", "2.fq"))
+
+
+def _hold_to_oracle(outs: dict, wants: dict, tag: str) -> None:
+    """Every run's ssv equals its group's oracle ssv, and its FASTQs the
+    group's first run's. `outs`: group -> [(mode, ssv, fq1, fq2)]."""
+    for group, runs in outs.items():
+        want = wants[group].encode()
+        first = runs[0]
+        for mode, ssv, fq1, fq2 in runs:
+            assert ssv == want, f"{tag}: {mode} ssv differs from the oracle's"
+            assert fq1 == first[2], f"{tag}: {mode} FASTQ 1"
+            assert fq2 == first[3], f"{tag}: {mode} FASTQ 2"
 
 
 def run_seed(tmp_path, seed: int, device="cpu", extras=None) -> dict:
@@ -287,10 +313,8 @@ def run_seed(tmp_path, seed: int, device="cpu", extras=None) -> dict:
             _check_launches(f"seed {seed} {mode}", counts, path)
         else:
             assert not any(counts.values()), f"{mode} launched {counts}"
-        outs.setdefault(group, []).append((mode, *(
-            (tmp_path / f"{mode}{seed}.{x}").read_bytes()
-            if x != "2.fq" or w["fq2"] else b""
-            for x in ("ssv", "1.fq", "2.fq"))))
+        outs.setdefault(group, []).append(
+            (mode, *_outputs(tmp_path / f"{mode}{seed}", w["paired"])))
         seen[mode] = (stats, counts)
 
     def one_card(ix, c=C):
@@ -340,14 +364,7 @@ def run_seed(tmp_path, seed: int, device="cpu", extras=None) -> dict:
     wants = {C: _oracle_ssv(w), "ties": _oracle_ssv(tw, tie_c)}
     if w["paired"]:
         wants[PAIRED_C] = _oracle_ssv(w, PAIRED_C)
-    for group, runs in outs.items():
-        want = wants[group].encode()
-        first = runs[0]
-        for mode, ssv, fq1, fq2 in runs:
-            assert ssv == want, (
-                f"seed {seed}: {mode} ssv differs from the oracle's")
-            assert fq1 == first[2], f"seed {seed}: {mode} FASTQ 1"
-            assert fq2 == first[3], f"seed {seed}: {mode} FASTQ 2"
+    _hold_to_oracle(outs, wants, f"seed {seed}")
     return {
         "layout": layout,
         "extras": tuple(extras),
@@ -362,6 +379,303 @@ def run_seed(tmp_path, seed: int, device="cpu", extras=None) -> dict:
         "group_rows": seen["native_ties"][0].get("group_rows", 0),
         "launches": launched,
     }
+
+
+# ---------------------------------------------------------------------------
+# the edge pass: the inputs run_seed never draws
+# ---------------------------------------------------------------------------
+
+# Bands of the longest fused read, by the length rule each reaches
+# (pipeline._round_len): multiples of 8, multiples of 32, powers of two up
+# to the staged front end's last length (16384), and K1's long-read kernel
+# past it.
+EDGE_BANDS = ((90, 256), (257, 1024), (1025, 16384), (16385, 20000))
+# --max-read-len: 0 (the auto pre-scan), the rounded length, or a length
+# that is not a multiple of 8 (the native engine hands over u8 codes)
+EDGE_LENS = ("auto", "rounded", "unpacked")
+EDGE_WINNERS = (1, 2, 16)
+EDGE_BATCHES = (32, 8192)  # 8192: the CLI's default
+# Past the second band a seed runs at B = 32: the host's plain-PyTorch
+# run (--backend cpu) holds B x L windows of 64-bit hashes.
+EDGE_BIG_BATCH_BANDS = 2
+MATE_LENS = (90, 300)  # a paired seed's mates, so its pairs reach 601
+MAX_GAP = 200  # bases between the mates of an innie pair
+_COMP = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def _log_uniform(rng, lo: int, hi: int) -> int:
+    return min(hi, max(lo, int(np.exp(rng.uniform(np.log(lo),
+                                                  np.log(hi + 1))))))
+
+
+def draw_edges(tmp_path, seed: int) -> dict:
+    """The edge seed's workload and flags, from np.random.default_rng(5000
+    + seed) (run_seed's draws stay as they are). The longest fused read
+    falls in the band drawn (one or two reads past 16384 in the last band,
+    the others shorter); a paired seed (first two bands only) takes mate
+    2 from the same gene as mate 1: the reverse complement of a piece
+    downstream of it, both mates 90-300 bases, so that its pairs reach C.
+    Returns the workload dict of _random_workload plus "band", "longest",
+    "lens" (EDGE_LENS), "max_read_len", "single", "max_winners",
+    "batch_size", "probe", "threads"."""
+    tmp_path = Path(tmp_path)
+    rng = np.random.default_rng(5000 + seed)
+    band = int(rng.integers(0, len(EDGE_BANDS)))
+    lo, hi = EDGE_BANDS[band]
+    k = int(rng.choice([11, 15, 17]))
+    paired = bool(rng.integers(0, 2)) and 2 * MATE_LENS[1] + 1 >= lo
+    minq = int(rng.choice([0, 10]))
+    single = bool(rng.integers(0, 2))
+    max_winners = int(rng.choice(EDGE_WINNERS))
+    batch_size = int(rng.choice(EDGE_BATCHES))
+    if band >= EDGE_BIG_BATCH_BANDS:
+        batch_size = EDGE_BATCHES[0]
+    lens = EDGE_LENS[int(rng.integers(0, len(EDGE_LENS)))]
+    probe = str(rng.choice(list(PROBES)))
+    threads = int(rng.integers(1, 4))
+    n_reads = int(rng.integers(12, 41))
+
+    # fused lengths: one read (one or two past 16384) in the band, the
+    # rest shorter
+    if paired:
+        lo = max(lo, 2 * MATE_LENS[0] + 1)
+        hi = min(hi, 2 * MATE_LENS[1] + 1)
+    n_top = int(rng.integers(1, 3)) if band == len(EDGE_BANDS) - 1 else 1
+    below = (2 * MATE_LENS[0] + 1) if paired else 90
+    # log-uniform: each power of two of the band about as likely
+    fused = [_log_uniform(rng, lo, hi) for _ in range(n_top)]
+    top = (fused[0] if band < len(EDGE_BANDS) - 1
+           else EDGE_BANDS[band - 1][1])
+    fused += [_log_uniform(rng, below, top) for _ in range(n_reads - n_top)]
+    order = rng.permutation(n_reads)
+    fused = [fused[i] for i in order]
+    mates = []
+    for f in fused:
+        if paired:
+            l2 = int(rng.integers(max(MATE_LENS[0], f - 1 - MATE_LENS[1]),
+                                  min(MATE_LENS[1], f - 1 - MATE_LENS[0])
+                                  + 1))
+            mates.append((f - 1 - l2, l2, int(rng.integers(0, MAX_GAP + 1))))
+        else:
+            mates.append((f, 0, 0))
+    need = max(a + g + b for a, b, g in mates)
+
+    n_genes = int(rng.integers(2, 7))
+    genes = []
+    for g in range(n_genes):
+        glen = need + int(rng.integers(0, 500))
+        genes.append((f"g{g}", BASES[rng.integers(0, 4, size=glen)].tobytes()))
+    fa = tmp_path / f"e{seed}.fa"
+    fa.write_bytes(b"".join(
+        b">%s\n" % n.encode() + b"".join(
+            q[i:i + 60] + b"\n" for i in range(0, len(q), 60))
+        for n, q in genes))
+
+    def noisy(r: bytes) -> bytes:
+        r = bytearray(r)
+        for _ in range(int(rng.integers(0, 3))):
+            r[int(rng.integers(0, len(r)))] = ord("N")
+        if rng.random() < 0.2:
+            r = bytearray(bytes(r).lower())
+        return bytes(r)
+
+    def qual(n: int) -> bytes:
+        # bench.py's profile, about 2% of bases under -q 10: a read keeps
+        # enough whole k-mers to reach C
+        q = rng.integers(33 + 20, 33 + 41, size=n)
+        low = rng.random(n) < 0.02
+        q[low] = rng.integers(33 + 2, 33 + 10, size=int(low.sum()))
+        return q.astype(np.uint8).tobytes()
+
+    reads1, reads2, quals1, quals2 = [], [], [], []
+    for l1, l2, gap in mates:
+        gseq = genes[int(rng.integers(0, n_genes))][1]
+        from_gene = rng.random() < 0.85
+        if from_gene:
+            s = int(rng.integers(0, len(gseq) - (l1 + gap + l2) + 1))
+            r1 = gseq[s:s + l1]
+            r2 = gseq[s + l1 + gap:s + l1 + gap + l2].translate(_COMP)[::-1]
+            if not paired and rng.random() < 0.5:
+                r1 = r1.translate(_COMP)[::-1]
+        else:
+            r1 = BASES[rng.integers(0, 4, size=l1)].tobytes()
+            r2 = BASES[rng.integers(0, 4, size=l2)].tobytes()
+        reads1.append(noisy(r1))
+        quals1.append(qual(l1))
+        if paired:
+            reads2.append(noisy(r2))
+            quals2.append(qual(l2))
+
+    def write_fq(path, rs, qs):
+        path.write_bytes(b"".join(b"@r%04d\n%s\n+\n%s\n" % (i, r, q)
+                                  for i, (r, q) in enumerate(zip(rs, qs))))
+
+    fq1 = tmp_path / f"e{seed}_1.fq"
+    write_fq(fq1, reads1, quals1)
+    fq2 = None
+    if paired:
+        fq2 = tmp_path / f"e{seed}_2.fq"
+        write_fq(fq2, reads2, quals2)
+    longest = max(fused)
+    max_read_len = {"auto": 0,
+                    "rounded": pipeline._round_len(longest, k)}.get(lens)
+    if lens == "unpacked":
+        max_read_len = longest + int(rng.integers(0, 12))
+        max_read_len += max_read_len % 8 == 0
+    return {
+        "k": k, "minq": minq, "paired": paired, "gz": False, "genes": genes,
+        "fa": fa, "fq1": fq1, "fq2": fq2, "reads1": reads1, "reads2": reads2,
+        "quals1": quals1, "quals2": quals2, "band": band, "longest": longest,
+        "lens": lens, "max_read_len": max_read_len, "single": single,
+        "max_winners": max_winners, "batch_size": batch_size,
+        "probe": probe, "threads": threads,
+    }
+
+
+def run_edges(tmp_path, seed: int, device="cpu") -> dict:
+    """ONE edge seed (draw_edges) through the port on `device`: the native
+    engine, the Python I/O, --backend native and, on a card, --backend cpu
+    (on the CPU the first two already run the plain versions), at C, on
+    the seed's FASTA and then on _tied's, every run with the seed's
+    max_read_len, batch size, -s and max_winners (the classifiers' and the
+    config's). Every ssv equals the oracle's (the index's Bloom size, -s),
+    and every FASTQ the first run's of its group; on a card each device
+    run's layout kernels launched. The Bloom size is the config's (tests
+    shrink config.BF_UNIT_BITS). Raises AssertionError on any difference,
+    and when the seed's ties should overflow the winner list (-s off,
+    max_winners 1, a read of the ties pass tied across two genes) and a
+    device run of the ties pass recomputed no row on the host. Returns
+    what it covered: "band",
+    "longest", "L" (the geometries the device classifier ran), "lens",
+    "max_read_len", "packed" (the engine handed over planar batches),
+    "engine" (the device run went through the native engine; auto falls
+    to the Python I/O past AUTO_NATIVE_MAX_LEN), "auto_len", "single",
+    "max_winners", "batch_size", "layout", "paired", "pair_emits" (reads
+    of a paired seed emitted at C), "host_rows" (rows the host recomputed
+    in the ties pass's device run), "should_overflow", "group_rows",
+    "n_reads", "associations", "launches", "configs" and "outputs" (the
+    native runs' config fields and bytes, by group)."""
+    tmp_path = Path(tmp_path)
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    w = draw_edges(tmp_path, seed)
+    probe, W = w["probe"], w["max_winners"]
+    layout = "hashed" if probe == "auto" else probe
+    forced = None if probe == "auto" else probe
+    tw = _tied(w, tmp_path, seed)
+
+    def cfg_of(wl, mode, **kw):
+        return SharkConfig(
+            fasta_path=str(wl["fa"]),
+            sample1_path=str(w["fq1"]),
+            sample2_path=str(w["fq2"]) if w["fq2"] else "",
+            out1_path=str(tmp_path / f"e{mode}{seed}.1.fq"),
+            out2_path=(str(tmp_path / f"e{mode}{seed}.2.fq") if w["fq2"]
+                       else ""),
+            ssv_path=str(tmp_path / f"e{mode}{seed}.ssv"),
+            k=w["k"], c=C, min_quality=w["minq"], single=w["single"],
+            batch_size=w["batch_size"], max_read_len=w["max_read_len"],
+            max_winners=W, probe=probe, **kw)
+
+    engine = not (w["lens"] == "auto"
+                  and w["longest"] > pipeline.AUTO_NATIVE_MAX_LEN)
+    launched = dict.fromkeys(kernels.KERNELS, 0)
+    outs, seen, configs, geometries = {}, {}, {}, set()
+
+    def run(group, wl, tag, mode, clf, path, **kw):
+        name = tag + mode
+        cfg = cfg_of(wl, name, **kw)
+        configs.setdefault(group, dataclasses.asdict(cfg))
+        kernels.LAUNCHES.reset()
+        pipeline.HOST_ROWS.reset()
+        stats = run_pipeline(cfg, classifier=clf)
+        counts = kernels.LAUNCHES.snapshot()
+        for kernel, n in counts.items():
+            launched[kernel] += n
+        native_run = mode == "host" or (mode != "python" and engine)
+        assert stats.get("native", False) == native_run, (seed, name)
+        if w["lens"] == "auto" and native_run:
+            assert stats["auto_max_read_len"] == pipeline._round_len(
+                w["longest"], w["k"]), (seed, name, stats)
+        if clf is None:
+            assert stats["probe"] == "host"
+        else:
+            assert stats["probe"] == layout, (seed, name, stats["probe"])
+            if clf.device == device:
+                geometries.update(clf._meta)
+        if on_card and path is not None:
+            _check_launches(f"edge seed {seed} {name}", counts, path)
+        else:
+            assert not any(counts.values()), f"{name} launched {counts}"
+        outs.setdefault(group, []).append(
+            (name, *_outputs(tmp_path / f"e{name}{seed}", w["paired"])))
+        seen[name] = (stats, pipeline.HOST_ROWS.snapshot()["oracle"])
+
+    def group_runs(group, wl, tag):
+        index = load_or_build_index(cfg_of(wl, f"{tag}index"), PhaseTimer())
+        clf = Classifier(index, max_winners=W, c=C, device=device,
+                         probe=forced)
+        assert clf.probe == layout, (probe, clf.probe)
+        run(group, wl, tag, "native", clf, layout, use_native=True)
+        run(group, wl, tag, "python", clf, layout, use_native=False)
+        clf = None
+        if on_card:  # on the CPU the runs above were the plain versions
+            clf = Classifier(index, max_winners=W, c=C, device="cpu",
+                             probe=forced)
+            run(group, wl, tag, "cpu", clf, None, backend="cpu")
+            clf = None
+        run(group, wl, tag, "host", None, None, backend="native",
+            threads=w["threads"])
+        return index.size_bits
+
+    size_bits = group_runs(C, w, "")
+    group_runs("ties", tw, "t")
+    wants = {C: _oracle_ssv(w, C, size_bits, w["single"]),
+             "ties": _oracle_ssv(tw, C, size_bits, w["single"])}
+    _hold_to_oracle(outs, wants, f"edge seed {seed}")
+    per_read = Counter(ln.split()[0] for ln in wants["ties"].splitlines())
+    should = not w["single"] and W == 1 and 2 in per_read.values()
+    for name in ("tnative", "tpython", "tcpu"):
+        assert seen.get(name, (None, 1))[1] or not should, (
+            f"edge seed {seed}: reads tied across two genes at max_winners "
+            f"1, and no row of {name} took the host recompute")
+    host_rows = seen["tnative"][1]
+    return {
+        "band": w["band"], "longest": w["longest"], "L": sorted(geometries),
+        "lens": w["lens"], "max_read_len": w["max_read_len"],
+        "packed": engine and w["lens"] != "unpacked", "engine": engine,
+        "auto_len": seen["native"][0].get("auto_max_read_len"),
+        "single": w["single"], "max_winners": W,
+        "batch_size": w["batch_size"], "layout": layout,
+        "paired": w["paired"],
+        "pair_emits": (len({ln.split()[0] for ln in wants[C].splitlines()})
+                       if w["paired"] else 0),
+        "host_rows": host_rows, "should_overflow": should,
+        "group_rows": seen["tnative"][0].get("group_rows", 0),
+        "n_reads": len(w["reads1"]),
+        "associations": sum(v.count("\n") for v in wants.values()),
+        "launches": launched,
+        "configs": configs,
+        "outputs": {g: runs[0][1:] for g, runs in outs.items()},
+    }
+
+
+def edge_covers(got: dict) -> set:
+    """What one run_edges result covers: its band, max_winners, batch
+    size, --max-read-len kind and layout, and where reached the unpacked
+    engine path, the auto length past the engine's ceiling (the Python
+    I/O), a paired seed's emitting pairs, -s and the host recompute."""
+    out = {f"band{got['band']}", f"W{got['max_winners']}",
+           f"B{got['batch_size']}", got["lens"], got["layout"]}
+    for key, on in (("unpacked_engine", got["engine"]
+                     and got["lens"] == "unpacked"),
+                    ("auto_python", not got["engine"]),
+                    ("pair_emits", got["pair_emits"]),
+                    ("single", got["single"]),
+                    ("host_rows", got["host_rows"])):
+        if on:
+            out.add(key)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import torch  # noqa: E402
 from shark_tpu.classify import step as jstep  # noqa: E402
 from shark_tpu_torch.classify import step as tstep  # noqa: E402
 from test_torch_front import _Meta, planar_pack, random_codes  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 

@@ -33,6 +33,7 @@ from shark_tpu_torch.ops.kmers import encode_bytes  # noqa: E402
 from shark_tpu_torch.pipeline import _winner_pairs, run_pipeline  # noqa: E402
 from test_e2e_fuzz import BASES, _random_workload  # noqa: E402
 from test_groups import _encode, _sample, family_workload  # noqa: E402,F401
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def test_classifier_matches_shark_tpu(family_workload):

@@ -27,6 +27,7 @@ import pytest
 from shark_tpu_torch.classify import hashed
 from test_torch_profile_e2e import _script
 from test_torch_stage_profiles import _line, tiny  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("profile_probe_torch", "profile_txome_torch", "sort_bench_torch")

@@ -30,6 +30,7 @@ from shark_tpu_torch.convert import (  # noqa: E402
     index_from_arrays,
 )
 from test_e2e_fuzz import BASES, _random_workload  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 PAD = 0xFFFFFFFF
 

@@ -37,6 +37,7 @@ from shark_tpu_torch import config
 from shark_tpu_torch.io import native
 from shark_tpu_torch.pipeline import run_pipeline
 from shark_tpu_torch.utils import trace
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(N_GENES=20, N_READS=300, N_PAIRS=100, HOMOLOG_GENES=48,

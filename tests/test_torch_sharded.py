@@ -33,6 +33,7 @@ from shark_tpu_torch.parallel import sharded_bf as tsharded  # noqa: E402
 from shark_tpu_torch.pipeline import run_pipeline  # noqa: E402
 from test_sharded_bf import K, _decode, _records_of, workload  # noqa: E402,F401
 from test_torch_pipeline import _family_fastx, _outputs  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAMES = ("packed", "winners", "best_cov", "length", "overflow")
 

@@ -47,6 +47,7 @@ from shark_tpu_torch.ops.kmers import encode_bytes  # noqa: E402
 from shark_tpu_torch.pipeline import _winner_pairs  # noqa: E402
 from test_groups import _encode, _sample, family_workload  # noqa: E402,F401
 from test_torch_pipeline import _family_fastx, _outputs  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_CORE = N_FLANK = 60
 

@@ -35,6 +35,7 @@ from shark_tpu_torch import config
 from shark_tpu_torch.classify import step
 from shark_tpu_torch.io import native
 from test_torch_profile_e2e import _script
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 READS = 2000

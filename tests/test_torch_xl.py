@@ -35,6 +35,7 @@ from shark_tpu_torch.classify import table_cache as tcache  # noqa: E402
 from shark_tpu_torch.convert import index_from_arrays  # noqa: E402
 from shark_tpu_torch.io import native as tnative  # noqa: E402
 from test_hashed_fuzz import BASES, _random_records, _reads_codes  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _fuzz_workload(seed):
