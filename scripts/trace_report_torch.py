@@ -8,9 +8,12 @@ Reads the newest *.pt.trace.json under PROFILE_DIR (what
 `python -m shark_tpu_torch ... --profile-dir PROFILE_DIR` writes) through
 shark_tpu_torch/utils/trace.py and prints the card's busy time over the
 window from the first kernel to the last, each kernel's total, the copies
-by kind (pageable or pinned where the trace says) and memsets, and, for
-each host thread, its time in torch operators, in each CUDA runtime call
-and outside both. --json prints the summary as one JSON line instead.
+by kind (pageable or pinned where the trace says) and memsets, for each
+host thread its time in torch operators, in each CUDA runtime call and
+outside both, the program's spans (shark::<name>) by thread with their
+counts and totals, and the card's idle time in the window by the span the
+dispatch thread was in (or outside any span). --json prints the summary
+as one JSON line instead.
 """
 
 from __future__ import annotations

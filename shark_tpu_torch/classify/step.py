@@ -47,6 +47,7 @@ from shark_tpu_torch import kernels
 from shark_tpu_torch.index.structure import SharkIndex
 from shark_tpu_torch.ops.kmers import INVALID, canonical_kmers_torch
 from shark_tpu_torch.ops.xxh64 import shr64, xxh64_torch
+from shark_tpu_torch.utils.timers import span
 
 # Largest supported Bloom filter per device: word indices must fit int32.
 MAX_SIZE_BITS = 1 << 36  # 8 GiB of bit-vector
@@ -1308,15 +1309,28 @@ class Classifier:
         return self.call_packed(*planar(codes, self.device))
 
     def call_packed(self, packed, vmask):
-        """packed u8[B, L/4] + validity u8[B, L/8] -> result tuple."""
-        return self.finish(self.tags(packed, vmask))
+        """packed u8[B, L/4] + validity u8[B, L/8] -> result tuple. The
+        copy to the card is the pass's span "h2d", the launches the rest
+        of the call (K1, the probe, K3 queued) its span "launch"."""
+        packed, vmask = self.upload(packed, vmask)
+        with span("launch"):
+            return self.finish(self.tags_on_device(packed, vmask))
+
+    def upload(self, packed, vmask):
+        """The planar reads moved to this classifier's device (span
+        "h2d")."""
+        with span("h2d"):
+            return (torch.as_tensor(packed).to(self.device, non_blocking=True),
+                    torch.as_tensor(vmask).to(self.device, non_blocking=True))
 
     def tags(self, packed, vmask):
         """K1 and the layout's probe (K2, K6 or K5): planar reads, moved to
         this classifier's device -> (tagv, payv, length, L), the finish's
         inputs."""
-        packed = torch.as_tensor(packed).to(self.device, non_blocking=True)
-        vmask = torch.as_tensor(vmask).to(self.device, non_blocking=True)
+        return self.tags_on_device(*self.upload(packed, vmask))
+
+    def tags_on_device(self, packed, vmask):
+        """tags() of planar reads already on this classifier's device."""
         L = packed.shape[1] * 4
         meta, _ = self._geometry(L)
         idx_hi, idx_lo, win_valid, length = front_end(packed, vmask, meta)

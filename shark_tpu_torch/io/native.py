@@ -23,6 +23,19 @@ _SO = os.path.join(_DIR, "..", "native", "_shark_native.so")
 _lib = None
 _lib_lock = threading.Lock()
 
+# shk_stats' counters, in the engine's order (enum Stat in shark_native.cpp)
+ENGINE_COUNTERS = (
+    "parse_ns",  # parser thread busy in parse_batch
+    "parse_wait_ns",  # parser blocked: the ring is full
+    "encode_ns",  # encoder threads busy, summed
+    "encode_wait_ns",  # encoders blocked: nothing parsed to encode
+    "next_wait_ns",  # shk_next blocked: the ring is empty
+    "next_copy_ns",  # shk_next's copies into the caller's arrays
+    "emit_ns",  # shk_emit
+    "emit_bytes",  # ssv and FASTQ bytes shk_emit writes
+    "batches",  # batches shk_next handed out
+)
+
 
 def _build() -> bool:
     # build under a private name and publish by rename: several processes
@@ -154,6 +167,10 @@ def get_lib():
         lib.shk_n_reads_out.argtypes = [ctypes.c_void_p]
         lib.shk_error.restype = ctypes.c_char_p
         lib.shk_error.argtypes = [ctypes.c_void_p]
+        lib.shk_stats.restype = ctypes.c_int
+        lib.shk_stats.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+        ]
         lib.shk_ring_capacity.restype = ctypes.c_int
         lib.shk_ring_capacity.argtypes = []
         lib.shk_close.restype = ctypes.c_int
@@ -303,6 +320,17 @@ class NativeStream:
             raise OSError(self._lib.shk_error(self._h).decode())
         if rc != 0:
             raise ValueError("emit failed (bad read/gene index)")
+
+    def stats(self) -> dict:
+        """The engine's counters so far: {name: int} over
+        ENGINE_COUNTERS."""
+        out = (ctypes.c_int64 * len(ENGINE_COUNTERS))()
+        n = self._lib.shk_stats(self._h, out, len(out))
+        if n != len(ENGINE_COUNTERS):
+            raise RuntimeError(
+                f"the engine keeps {n} counters, {len(ENGINE_COUNTERS)} "
+                "named here")
+        return dict(zip(ENGINE_COUNTERS, (int(x) for x in out)))
 
     @property
     def n_associations(self) -> int:

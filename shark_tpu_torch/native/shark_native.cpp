@@ -398,6 +398,28 @@ struct Batch {
 // whole ring anyway.
 constexpr int kRing = 20;
 
+// The engine's counters, in the order shk_stats copies them out (and
+// io/native.py names them): steady-clock ns each thread spends busy or
+// blocked, and what passes through the ring and shk_emit.
+enum Stat {
+  kParseNs,       // parse_batch (parser thread)
+  kParseWaitNs,   // blocked on cv_free: the ring is full
+  kEncodeNs,      // encode_batch_rows, summed over encoder threads
+  kEncodeWaitNs,  // blocked on cv_parsed: nothing parsed to encode
+  kNextWaitNs,    // shk_next blocked on cv_filled: the ring is empty
+  kNextCopyNs,    // shk_next's copies into the caller's arrays
+  kEmitNs,        // shk_emit
+  kEmitBytes,     // ssv and FASTQ bytes shk_emit writes
+  kBatches,       // batches shk_next hands out
+  kStats
+};
+
+inline int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
 // Output file that transparently gzip-compresses when the name ends .gz
 // (capability beyond the reference, which writes plain FASTQ only).
 struct OutFile {
@@ -488,6 +510,11 @@ struct Stream {
   // fails at the lowest bad batch — would read a message describing a
   // different batch. Lowest-batch-id wins among encoder errors.
   long err_batch_id = -1;
+  std::atomic<int64_t> stat[kStats] = {};
+
+  void count(Stat k, int64_t v) {
+    stat[k].fetch_add(v, std::memory_order_relaxed);
+  }
 };
 
 void encode_into(const char* s, int n, uint8_t* dst, int cap, int off,
@@ -685,6 +712,7 @@ int encode_batch_rows(Stream* s, Batch& b, std::string& err) {
 void producer_loop(Stream* s) {
   while (true) {
     long id;
+    int64_t t0 = now_ns();
     {
       std::unique_lock<std::mutex> lk(s->mu);
       s->cv_free.wait(lk, [&] {
@@ -693,8 +721,11 @@ void producer_loop(Stream* s) {
       if (s->stop) return;
       id = s->produce_id;
     }
+    int64_t t1 = now_ns();
+    s->count(kParseWaitNs, t1 - t0);
     Batch& b = s->ring[id % kRing];
     int n = parse_batch(s, b);
+    s->count(kParseNs, now_ns() - t1);
     {
       std::unique_lock<std::mutex> lk(s->mu);
       b.state = Batch::PARSED;
@@ -709,6 +740,7 @@ void producer_loop(Stream* s) {
 void encoder_loop(Stream* s) {
   while (true) {
     long id;
+    int64_t t0 = now_ns();
     {
       std::unique_lock<std::mutex> lk(s->mu);
       s->cv_parsed.wait(lk, [&] {
@@ -721,9 +753,12 @@ void encoder_loop(Stream* s) {
       s->ring[id % kRing].state = Batch::ENCODING;
       s->cv_parsed.notify_all();  // wake peers for the next PARSED slot
     }
+    int64_t t1 = now_ns();
+    s->count(kEncodeWaitNs, t1 - t0);
     Batch& b = s->ring[id % kRing];
     std::string err;
     int n = encode_batch_rows(s, b, err);
+    s->count(kEncodeNs, now_ns() - t1);
     {
       std::unique_lock<std::mutex> lk(s->mu);
       if (!err.empty() &&
@@ -851,6 +886,7 @@ int shk_next(void* h, uint8_t* codes, uint8_t* packed, uint8_t* vmask,
              int* slot_out) {
   Stream* s = (Stream*)h;
   long id;
+  int64_t t0 = now_ns();
   {
     std::unique_lock<std::mutex> lk(s->mu);
     s->cv_filled.wait(lk, [&] {
@@ -870,6 +906,8 @@ int shk_next(void* h, uint8_t* codes, uint8_t* packed, uint8_t* vmask,
       return -1;
     }
   }
+  int64_t t1 = now_ns();
+  s->count(kNextWaitNs, t1 - t0);
   int slot = (int)(id % kRing);
   Batch& b = s->ring[slot];
   if (b.n < 0) return -1;
@@ -895,6 +933,8 @@ int shk_next(void* h, uint8_t* codes, uint8_t* packed, uint8_t* vmask,
     memcpy(packed, b.packed.data(), (size_t)s->batch_size * (s->max_len / 4));
   if (s->pack_mode && vmask)
     memcpy(vmask, b.vmask.data(), (size_t)s->batch_size * (s->max_len / 8));
+  s->count(kNextCopyNs, now_ns() - t1);
+  s->count(kBatches, 1);
   {
     std::unique_lock<std::mutex> lk(s->mu);
     b.state = Batch::CONSUMED;
@@ -1001,12 +1041,18 @@ static void write_fastq(OutFile& f, const RecView& r) {
   f.put('\n');
 }
 
+// The bytes write_fastq writes for r.
+static size_t fastq_size(const RecView& r) {
+  return (size_t)r.name_len + r.seq_len + r.qual_len + 6;
+}
+
 // Emit associations for one batch: (read_idx, gene_idx) pairs, grouped by
 // read in ascending read order (multiple genes per read allowed, the read's
 // FASTQ records are written once).
 int shk_emit(void* h, int slot, const int32_t* read_idx,
              const int32_t* gene_idx, int n_assoc) {
   Stream* s = (Stream*)h;
+  int64_t t0 = now_ns();
   Batch& b = s->ring[slot];
   // validate EVERY index before writing anything: a mid-loop failure
   // would leave the FASTQ outputs holding part of the batch with its ssv
@@ -1017,10 +1063,12 @@ int shk_emit(void* h, int slot, const int32_t* read_idx,
     if (read_idx[i] < 0 || read_idx[i] >= b.n || gene_idx[i] < 0 ||
         gene_idx[i] >= (int)s->gene_names.size()) {
       shk_release(h, slot);
+      s->count(kEmitNs, now_ns() - t0);
       return -1;
     }
   }
   int prev = -1;
+  size_t fastq_bytes = 0;
   std::string& line = s->ssv_buf;  // one big fwrite per batch
   line.clear();
   for (int i = 0; i < n_assoc; i++) {
@@ -1036,12 +1084,17 @@ int shk_emit(void* h, int slot, const int32_t* read_idx,
       s->n_reads_out++;
       if (s->out1.is_open()) write_fastq(s->out1, rec);
       if (s->out2.is_open() && s->paired) write_fastq(s->out2, b.view(1, r));
+      if (s->out1.is_open()) fastq_bytes += fastq_size(rec);
+      if (s->out2.is_open() && s->paired)
+        fastq_bytes += fastq_size(b.view(1, r));
       prev = r;
     }
   }
   bool werr = !line.empty() &&
               fwrite(line.data(), 1, line.size(), s->ssv) != line.size();
   shk_release(h, slot);
+  s->count(kEmitBytes, (int64_t)(line.size() + fastq_bytes));
+  s->count(kEmitNs, now_ns() - t0);
   // Surface write failures (disk full, I/O error) instead of reporting a
   // truncated run as success: -2 distinguishes them from bad indices (-1).
   if (werr || ferror(s->ssv) || s->out1.werr || s->out2.werr) {
@@ -1050,6 +1103,15 @@ int shk_emit(void* h, int slot, const int32_t* read_idx,
     return -2;
   }
   return 0;
+}
+
+// The engine's counters so far, in Stat order: copies the first n (at most
+// kStats) into out and returns kStats.
+int shk_stats(void* h, int64_t* out, int n) {
+  Stream* s = (Stream*)h;
+  for (int i = 0; i < n && i < kStats; i++)
+    out[i] = s->stat[i].load(std::memory_order_relaxed);
+  return kStats;
 }
 
 // Ring capacity for callers sizing their lookahead (and for tests that

@@ -23,6 +23,7 @@ import torch
 from shark_tpu_torch.classify.step import Classifier, fix_caps, planar
 from shark_tpu_torch.index.structure import SharkIndex
 from shark_tpu_torch.parallel.mesh import make_devices, norm_device
+from shark_tpu_torch.utils.timers import span
 
 
 def _on(device: torch.device, x):
@@ -106,40 +107,47 @@ class DataParallelClassifier:
         counts summed into the whole batch's; K3 on each part with the
         batch's group choice; the results joined on devices[0]. Each part
         launches on its device's current stream; a copy between devices
-        is ordered after the work queued on both (PyTorch's rule)."""
+        is ordered after the work queued on both (PyTorch's rule). The
+        parts' copies to their cards are the pass's spans "h2d", the rest
+        one span "launch"."""
         B = batch[0].shape[0]
         self._check_b(B)
         n = B // self.n_devices
         if self.n_devices == 1:
             return self._replicas[0].call_packed(*batch)
-        parts = []
+        ups = []
         for i, r in enumerate(self._replicas):
             with _on_card(r.device):
-                parts.append(r.tags(*(torch.as_tensor(x)[i * n:(i + 1) * n]
+                ups.append(r.upload(*(torch.as_tensor(x)[i * n:(i + 1) * n]
                                       for x in batch)))
-        n_fix, fix_cap2 = {}, None
-        if self._grouped(parts[0][3]):
+        with span("launch"):
+            parts = []
+            for r, u in zip(self._replicas, ups):
+                with _on_card(r.device):
+                    parts.append(r.tags_on_device(*u))
+            n_fix, fix_cap2 = {}, None
+            if self._grouped(parts[0][3]):
+                for r, t in zip(self._replicas, parts):
+                    with _on_card(r.device):
+                        if r.device not in n_fix:
+                            n_fix[r.device] = torch.zeros(
+                                1, dtype=torch.int32, device=r.device)
+                        r.group_count(t, n_fix[r.device])
+                total = None
+                for c in n_fix.values():
+                    c = c.to(self.device)
+                    total = c if total is None else total + c
+                n_fix = {d: total.to(d) for d in n_fix}
+                fix_cap2 = fix_caps(B)[1]
+            outs = []
             for r, t in zip(self._replicas, parts):
                 with _on_card(r.device):
-                    if r.device not in n_fix:
-                        n_fix[r.device] = torch.zeros(
-                            1, dtype=torch.int32, device=r.device)
-                    r.group_count(t, n_fix[r.device])
-            total = None
-            for c in n_fix.values():
-                c = c.to(self.device)
-                total = c if total is None else total + c
-            n_fix = {d: total.to(d) for d in n_fix}
-            fix_cap2 = fix_caps(B)[1]
-        outs = []
-        for r, t in zip(self._replicas, parts):
-            with _on_card(r.device):
-                outs.append(r.finish(t, n_fix=n_fix.get(r.device),
-                                     fix_cap2=fix_cap2))
-        return tuple(
-            torch.cat([o[j].to(self.device) for o in outs])
-            for j in range(len(outs[0]))
-        )
+                    outs.append(r.finish(t, n_fix=n_fix.get(r.device),
+                                         fix_cap2=fix_cap2))
+            return tuple(
+                torch.cat([o[j].to(self.device) for o in outs])
+                for j in range(len(outs[0]))
+            )
 
     def __call__(self, codes):
         """codes: uint8 [B, L] -> Classifier's (packed, winners, best_cov,

@@ -38,7 +38,13 @@ from shark_tpu_torch.io.encode import ReadBatch, encode_batch, fused_length
 from shark_tpu_torch.io.fastx import read_fasta, read_fastq_pairs
 from shark_tpu_torch.io.writer import OutputWriter
 from shark_tpu_torch.parallel.mesh import make_devices
-from shark_tpu_torch.utils.timers import PhaseTimer
+from shark_tpu_torch.utils.timers import (
+    PhaseTimer,
+    Spans,
+    all_threads_config,
+    recording,
+    span,
+)
 
 FastqRecord = Tuple[str, bytes, bytes]
 
@@ -551,9 +557,13 @@ def _skip_resumed(ns, skip_left: int) -> None:
         skip_left -= nb[-1]
 
 
-def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
+def _run_native(
+    cfg: SharkConfig, index: SharkIndex, classifier, timer, spans: Spans
+) -> dict:
     """Fast path: parse/encode/write in the native C++ engine, device in a
-    DEPTH-deep software pipeline. Requires a fixed max_read_len.
+    DEPTH-deep software pipeline. Requires a fixed max_read_len. `spans`
+    is the pass's record (run_pipeline): the drain thread records into it
+    too, and it keeps the drain's counts.
 
     With cfg.resume, a `<ssv>.progress` sidecar records (reads classified,
     output byte offsets) after every drained batch; an interrupted run
@@ -568,23 +578,24 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
     )
 
     use_packed = cfg.max_read_len % 8 == 0
-    ns = NativeStream(
-        cfg.sample1_path,
-        cfg.sample2_path,
-        cfg.batch_size,
-        cfg.max_read_len,
-        cfg.min_quality,
-        packed=use_packed,
-        # -t N provisions extra host encode threads (the reference's
-        # worker-thread flag mapped to the one host stage that scales;
-        # parse itself is sequential)
-        encode_threads=max(1, min(cfg.threads - 1, 8)),
-    )
-    ns.set_output(
-        1, cfg.ssv_path, cfg.out1_path, cfg.out2_path,
-        append=reads_done0 > 0,
-    )
-    ns.register_genes(index.gene_names)
+    with span("stream_open"):
+        ns = NativeStream(
+            cfg.sample1_path,
+            cfg.sample2_path,
+            cfg.batch_size,
+            cfg.max_read_len,
+            cfg.min_quality,
+            packed=use_packed,
+            # -t N provisions extra host encode threads (the reference's
+            # worker-thread flag mapped to the one host stage that scales;
+            # parse itself is sequential)
+            encode_threads=max(1, min(cfg.threads - 1, 8)),
+        )
+        ns.set_output(
+            1, cfg.ssv_path, cfg.out1_path, cfg.out2_path,
+            append=reads_done0 > 0,
+        )
+        ns.register_genes(index.gene_names)
 
     # The drain (fetch verdicts -> winner pairs -> native emit) runs on its
     # own thread so the device never waits for host post-processing; the
@@ -600,13 +611,17 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
     drain_err: List[BaseException] = []
 
     # warm-up: builds the CUDA kernels when missing or stale, and loads them
-    if use_packed:
-        wp = np.zeros((cfg.batch_size, cfg.max_read_len // 4), dtype=np.uint8)
-        wv = np.zeros((cfg.batch_size, cfg.max_read_len // 8), dtype=np.uint8)
-        _np(classifier.call_packed(wp, wv)[0])
-    else:
-        warm = np.full((cfg.batch_size, cfg.max_read_len), 4, dtype=np.uint8)
-        _np(classifier(warm)[0])
+    with span("warmup_batch"):
+        if use_packed:
+            wp = np.zeros((cfg.batch_size, cfg.max_read_len // 4),
+                          dtype=np.uint8)
+            wv = np.zeros((cfg.batch_size, cfg.max_read_len // 8),
+                          dtype=np.uint8)
+            _np(classifier.call_packed(wp, wv)[0])
+        else:
+            warm = np.full((cfg.batch_size, cfg.max_read_len), 4,
+                           dtype=np.uint8)
+            _np(classifier(warm)[0])
     timer.mark("Device warmup")
     warm_s = timer.elapsed()
 
@@ -631,9 +646,13 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
         else 0
     )
     spec_state = {"cap": pre_cap}
-    counters = {"group_rows": 0}  # device GROUP verdicts seen (tests)
+    spans.counts["group_rows"] = 0  # device GROUP verdicts seen (tests)
 
     def drainer():
+        with recording(spans, "drain"):
+            drain()
+
+    def drain():
         while True:
             item = q.get()
             if item is None:
@@ -642,24 +661,27 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
                 continue  # keep the queue moving so q.put never deadlocks
             entries, cat = item
             try:
-                packed_all = cat.numpy()
+                with span("fetch_wait"):
+                    packed_all = cat.numpy()
                 off = 0
                 for c_, s_, n_, r_, spec_ in entries:
-                    ri, gi = _winner_pairs(
-                        cfg,
-                        index,
-                        r_,
-                        n_,
-                        c_,
-                        cfg.max_winners,
-                        packed_np=packed_all[off : off + cfg.batch_size],
-                        reprobe=getattr(classifier, "reprobe", None),
-                        spec=spec_,
-                        spec_state=spec_state,
-                        groups=classifier.groups,
-                        counters=counters,
-                    )
-                    ns.emit(s_, ri, gi)
+                    with span("winner_pairs"):
+                        ri, gi = _winner_pairs(
+                            cfg,
+                            index,
+                            r_,
+                            n_,
+                            c_,
+                            cfg.max_winners,
+                            packed_np=packed_all[off : off + cfg.batch_size],
+                            reprobe=getattr(classifier, "reprobe", None),
+                            spec=spec_,
+                            spec_state=spec_state,
+                            groups=classifier.groups,
+                            counters=spans.counts,
+                        )
+                    with span("emit"):
+                        ns.emit(s_, ri, gi)
                     off += cfg.batch_size
                     reads_done[0] += n_
                     if progress_path:
@@ -673,18 +695,17 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
             except BaseException as e:  # noqa: BLE001 - reraised on main
                 drain_err.append(e)
 
-    n_groups = [0]  # flushed verdict groups (observability + tests)
-
     def flush_group(group):
         if not group:
             return
-        n_groups[0] += 1
-        cat = (
-            torch.cat([e[3][0] for e in group])
-            if len(group) > 1
-            else group[0][3][0]
-        )
-        q.put((list(group), _HostCopy(cat)))
+        with span("group_copy"):  # its count: the fetched groups
+            cat = _HostCopy(
+                torch.cat([e[3][0] for e in group])
+                if len(group) > 1
+                else group[0][3][0]
+            )
+        with span("queue_wait"):
+            q.put((list(group), cat))
         group.clear()
 
     th = threading.Thread(target=drainer, daemon=True)
@@ -696,7 +717,8 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
         _skip_resumed(ns, reads_done0)
 
         while not drain_err:
-            nb = ns.next_batch()
+            with span("ring_wait"):
+                nb = ns.next_batch()
             if nb is None:
                 break
             if use_packed:
@@ -709,10 +731,13 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
             spec = None
             spec_cap = spec_state["cap"]
             if spec_cap and not cfg.single:
-                spec = (
-                    _HostCopy(extract_pairs(result[0], result[1], spec_cap)),
-                    spec_cap,
-                )
+                with span("spec_pairs"):
+                    spec = (
+                        _HostCopy(
+                            extract_pairs(result[0], result[1], spec_cap)
+                        ),
+                        spec_cap,
+                    )
             n_reads += n
             n_batches += 1
             group.append((host_codes, slot, n, result, spec))
@@ -721,8 +746,9 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
             if cfg.fail_after_batches and n_batches >= cfg.fail_after_batches:
                 raise RuntimeError("injected failure (fail_after_batches)")
         flush_group(group)
-        q.put(None)
-        th.join()
+        with span("drain_join"):
+            q.put(None)
+            th.join()
         if drain_err:
             raise drain_err[0]
     except BaseException:
@@ -756,9 +782,10 @@ def _run_native(cfg: SharkConfig, index: SharkIndex, classifier, timer) -> dict:
         "warmup_s": warm_s,
         "classify_s": elapsed - warm_s,
         "native": True,
-        "fetch_groups": n_groups[0],
-        "group_rows": counters["group_rows"],
+        "fetch_groups": spans.n("group_copy"),
+        "group_rows": spans.counts["group_rows"],
         "probe": classifier.probe,
+        "engine": ns.stats(),
     }
     if reads_done0:
         stats["resumed_reads"] = reads_done0
@@ -807,7 +834,8 @@ def _run_native_host(cfg: SharkConfig, index: SharkIndex, timer: PhaseTimer) -> 
         n_reads = 0
         _skip_resumed(ns, reads_done0)
         while True:
-            nb = ns.next_batch()
+            with span("ring_wait"):
+                nb = ns.next_batch()
             if nb is None:
                 break
             codes, slot, n = nb
@@ -815,7 +843,8 @@ def _run_native_host(cfg: SharkConfig, index: SharkIndex, timer: PhaseTimer) -> 
                 index, codes, n, cfg.c, cfg.single,
                 threads=max(1, cfg.threads),
             )
-            ns.emit(slot, ri, gi)
+            with span("emit"):
+                ns.emit(slot, ri, gi)
             n_reads += n
             if progress_path:
                 _write_progress(
@@ -845,6 +874,7 @@ def _run_native_host(cfg: SharkConfig, index: SharkIndex, timer: PhaseTimer) -> 
         "classify_s": elapsed - warm_s,
         "native": True,
         "probe": "host",
+        "engine": ns.stats(),
     }
     if reads_done0:
         stats["resumed_reads"] = reads_done0
@@ -1039,15 +1069,26 @@ def run_pipeline(
             device = resolve_device(device)
     timer = PhaseTimer()
     with _profiled(cfg, device, classifier):
-        return _run_pipeline_inner(cfg, ssv_stream, timer, classifier, device)
+        spans = Spans()
+        with recording(spans, "dispatch"):
+            stats = _run_pipeline_inner(
+                cfg, ssv_stream, timer, classifier, device, spans
+            )
+    # the pass's spans (timers.Spans): {name: {"n", "ms"}}, and the time
+    # inside each thread's outermost spans
+    stats["spans"] = spans.summary()
+    stats["spans_covered_ms"] = spans.covered_ms()
+    return stats
 
 
 def _profiled(cfg: SharkConfig, device, classifier):
     """--profile-dir: a torch.profiler profile around the run, whose Chrome
     trace (<profile_dir>/<host>_<pid>.<time>.pt.trace.json) is written when
     the run ends, also when it raises. It records the host's torch
-    operators, and the card's kernels and copies when the run is on the
-    card; --backend native records the host only. Else a null context."""
+    operators and the pass's spans on every thread (the drain's too,
+    where this torch can), and the card's kernels and copies when the run
+    is on the card; --backend native records the host only. Else a null
+    context."""
     import contextlib
 
     if not cfg.profile_dir:
@@ -1065,6 +1106,7 @@ def _profiled(cfg: SharkConfig, device, classifier):
     return profile(
         activities=activities,
         on_trace_ready=tensorboard_trace_handler(cfg.profile_dir),
+        experimental_config=all_threads_config(),
     )
 
 
@@ -1091,7 +1133,8 @@ def _probe_opts(cfg: SharkConfig) -> dict:
 
 
 def _run_pipeline_inner(
-    cfg: SharkConfig, ssv_stream, timer: PhaseTimer, classifier, device
+    cfg: SharkConfig, ssv_stream, timer: PhaseTimer, classifier, device,
+    spans: Spans,
 ) -> dict:
 
     if cfg.verbose:
@@ -1212,7 +1255,8 @@ def _run_pipeline_inner(
 
         native_len = cfg.max_read_len
         if join_scan is not None:
-            mf = join_scan()
+            with span("prescan_wait"):
+                mf = join_scan()
             if mf > AUTO_NATIVE_MAX_LEN:
                 # one long read would pad EVERY fixed-geometry batch to its
                 # length; the Python path pads per batch instead. Say so:
@@ -1241,7 +1285,7 @@ def _run_pipeline_inner(
                 from dataclasses import replace
 
                 ncfg = replace(cfg, max_read_len=native_len)
-            stats = _run_native(ncfg, index, classifier, timer)
+            stats = _run_native(ncfg, index, classifier, timer, spans)
             stats["index_s"] = index_s
             stats["warmup_s"] -= index_s
             stats["classify_s"] = stats["elapsed_s"] - index_s - stats["warmup_s"]

@@ -1,6 +1,6 @@
-"""Phase timing + throughput counters, and CUDA kernel timing: CUDA events,
-and torch.profiler device time held against the back-to-back event time,
-with the L2 warm or flushed.
+"""Phase timing + throughput counters, the spans of a pipeline pass, and
+CUDA kernel timing: CUDA events, and torch.profiler device time held
+against the back-to-back event time, with the L2 warm or flushed.
 
 The reference prints "[shark/<tag>] Time elapsed <s>" at phase milestones
 (main.cpp:47-54); we keep that shape on stderr and add throughput counters.
@@ -8,10 +8,12 @@ The reference prints "[shark/<tag>] Time elapsed <s>" at phase milestones
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import sys
+import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -38,6 +40,138 @@ class PhaseTimer:
             f"({count / dt:,.0f} {unit}/s)",
             file=self.stream,
         )
+
+
+class Spans:
+    """The spans of one pass of the pipeline: for each name, how many
+    times the code it wraps ran and the time.perf_counter_ns time it took,
+    plus plain counts (`counts`). Each thread that records (recording())
+    gets its own totals, so no update races another thread's; summary()
+    adds them up. When a torch.profiler session is recording as the pass
+    begins, every span also opens torch.profiler.record_function(
+    "shark::<name>"), which the Chrome trace keeps as a user_annotation
+    record on the card's clock; with none, no record_function is made."""
+
+    def __init__(self):
+        # the module's flag is set for a session in any mode; the
+        # thread's own flag is not set where the session records every
+        # thread (all_threads_config)
+        self.profiled = bool(
+            getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+            or torch.autograd._profiler_enabled()
+        )
+        self.counts: Dict[str, int] = {}
+        self._threads = []  # (role, _ThreadSpans)
+
+    def thread(self, role: str) -> "_ThreadSpans":
+        t = _ThreadSpans(self.profiled)
+        self._threads.append((role, t))
+        return t
+
+    def summary(self) -> dict:
+        """{name: {"n": count, "ms": total}} over every thread."""
+        out: Dict[str, dict] = {}
+        for _, t in self._threads:
+            for name, (n, ns) in t.totals.items():
+                row = out.setdefault(name, {"n": 0, "ms": 0.0})
+                row["n"] += n
+                row["ms"] += ns / 1e6
+        return out
+
+    def covered_ms(self) -> dict:
+        """{role: ms} inside the outermost spans of each role's threads
+        (a span within another counts once)."""
+        out: Dict[str, float] = {}
+        for role, t in self._threads:
+            out[role] = out.get(role, 0.0) + t.outer_ns / 1e6
+        return out
+
+    def n(self, name: str) -> int:
+        return self.summary().get(name, {"n": 0})["n"]
+
+
+class _ThreadSpans:
+    """One thread's share of a pass's spans."""
+
+    __slots__ = ("totals", "depth", "outer_ns", "profiled")
+
+    def __init__(self, profiled: bool):
+        self.totals: Dict[str, list] = {}  # name -> [n, ns]
+        self.depth = 0
+        self.outer_ns = 0
+        self.profiled = profiled
+
+
+class _Span:
+    __slots__ = ("rec", "name", "t0", "fn")
+
+    def __init__(self, rec: _ThreadSpans, name: str):
+        self.rec = rec
+        self.name = name
+        self.fn = None
+
+    def __enter__(self):
+        rec = self.rec
+        if rec.profiled:
+            self.fn = torch.profiler.record_function("shark::" + self.name)
+            self.fn.__enter__()
+        rec.depth += 1
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        rec = self.rec
+        rec.depth -= 1
+        if rec.depth == 0:
+            rec.outer_ns += dt
+        tot = rec.totals.get(self.name)
+        if tot is None:
+            rec.totals[self.name] = [1, dt]
+        else:
+            tot[0] += 1
+            tot[1] += dt
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        return False
+
+
+_local = threading.local()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that adds the time of its body to `name` in the
+    pass this thread records into (recording()); a no-op outside one."""
+    rec = getattr(_local, "rec", None)
+    if rec is None:
+        return _NO_SPAN
+    return _Span(rec, name)
+
+
+def all_threads_config():
+    """A torch.profiler experimental_config that records the torch calls
+    and spans of every thread, not only of the thread that starts the
+    profiler (the pipeline's drain runs on a thread of its own); None
+    where this torch lacks the setting."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
+@contextlib.contextmanager
+def recording(spans: Spans, role: str):
+    """Within it, span() on this thread records into `spans` as one of
+    `role`'s threads ("dispatch", "drain")."""
+    prev = getattr(_local, "rec", None)
+    _local.rec = spans.thread(role)
+    try:
+        yield
+    finally:
+        _local.rec = prev
 
 
 def l2_flusher(nbytes: int = 128 << 20, device="cuda"):

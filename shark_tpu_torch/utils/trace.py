@@ -1,6 +1,8 @@
 """Read a torch.profiler Chrome trace (what --profile-dir writes): where the
-card's time went, by kernel and by copy, and where each host thread's time
-went, in torch operators and in CUDA runtime calls.
+card's time went, by kernel and by copy, where each host thread's time
+went, in torch operators and in CUDA runtime calls, and in the program's
+own spans (shark::<name> records, shark_tpu_torch/utils/timers.py), and
+which span the dispatch thread was in while the card sat idle.
 
 The port's counterpart of bench/trace_report.py, which summed a
 jax.profiler trace by device op. Times in the trace are microseconds; the
@@ -13,6 +15,7 @@ busy time); a sum counts each record (a total).
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 from typing import Dict, Iterable, List, Tuple
@@ -22,6 +25,11 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # cudaStreamSynchronize, ... and, where the trace records them, the cu*
 # calls beneath them (cuLaunchKernel)
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+SPAN_PREFIX = "shark::"
+# the span that marks the dispatch thread: the thread that takes batches
+# from the engine's ring and launches them
+DISPATCH_SPAN = "ring_wait"
+OUTSIDE = "outside any span"
 
 
 def trace_files(profile_dir: str) -> List[str]:
@@ -80,6 +88,56 @@ def _totals(events) -> Dict[str, dict]:
     return out
 
 
+def _gaps(busy: List[Tuple[float, float]], t0: float, t1: float):
+    """The parts of (t0, t1) outside every busy span, in order."""
+    out, at = [], t0
+    for a, b in sorted(busy):
+        if a > at:
+            out.append((at, min(a, t1)))
+        at = max(at, b)
+        if at >= t1:
+            break
+    if at < t1:
+        out.append((at, t1))
+    return [(a, b) for a, b in out if b > a]
+
+
+def idle_by_span(gaps: List[Tuple[float, float]],
+                 spans: List[Tuple[float, float, str]]) -> Dict[str, float]:
+    """{span name: time} of the `gaps` (sorted, apart), each instant given
+    to the innermost of the (start, end, name) `spans` of one thread open
+    at that instant (the latest begun), else to OUTSIDE."""
+    starts = [a for a, _ in gaps]
+    cum = [0.0]
+    for a, b in gaps:
+        cum.append(cum[-1] + b - a)
+
+    def idle_to(t):  # gap time before t
+        k = bisect.bisect_right(starts, t)
+        if k == 0:
+            return 0.0
+        a, b = gaps[k - 1]
+        return cum[k - 1] + min(t, b) - a
+
+    events = sorted([(a, 1, i) for i, (a, _, _) in enumerate(spans)]
+                    + [(b, 0, i) for i, (_, b, _) in enumerate(spans)])
+    out: Dict[str, float] = {}
+    opened: List[int] = []
+    at = gaps[0][0] if gaps else 0.0
+    for t, starting, i in events:
+        if t > at:
+            label = spans[opened[-1]][2] if opened else OUTSIDE
+            out[label] = out.get(label, 0.0) + idle_to(t) - idle_to(at)
+            at = t
+        if starting:
+            opened.append(i)
+        else:
+            opened.remove(i)
+    if gaps and gaps[-1][1] > at:
+        out[OUTSIDE] = out.get(OUTSIDE, 0.0) + cum[-1] - idle_to(at)
+    return {k: v for k, v in out.items() if v > 0}
+
+
 def summarize_events(events: List[dict]) -> dict:
     """The summary of a trace's event list (see summarize)."""
     xs = [e for e in events if e.get("ph") == "X"]
@@ -90,6 +148,23 @@ def summarize_events(events: List[dict]) -> dict:
 
     kern = spans(("kernel",))
     window = (max(b for _, b in kern) - min(a for a, _ in kern)) if kern else 0
+    marks = [e for e in xs if e.get("cat") == "user_annotation"
+             and e["name"].startswith(SPAN_PREFIX)]
+    by_thread: Dict[str, Dict[str, dict]] = {}
+    for e in marks:
+        row = by_thread.setdefault(str(e.get("tid")), {}).setdefault(
+            e["name"][len(SPAN_PREFIX):], {"n": 0, "ms": 0.0})
+        row["n"] += 1
+        row["ms"] += e.get("dur", 0) / 1e3
+    dispatch = next((t for t, rows in by_thread.items()
+                     if DISPATCH_SPAN in rows), None)
+    idle = {}
+    if kern:
+        gaps = _gaps(spans(DEVICE_CATS), min(a for a, _ in kern),
+                     max(b for _, b in kern))
+        idle = idle_by_span(gaps, [
+            (e["ts"], e["ts"] + e.get("dur", 0), e["name"][len(SPAN_PREFIX):])
+            for e in marks if str(e.get("tid")) == dispatch])
     host = {}
     tids = {e.get("tid") for e in xs
             if e.get("cat") in ("cpu_op",) + RUNTIME_CATS}
@@ -126,6 +201,10 @@ def summarize_events(events: List[dict]) -> dict:
                           if e.get("cat") == "gpu_memset").get(
                               "memset", {"ms": 0.0, "count": 0}),
         "host": host,
+        "spans": by_thread,
+        "dispatch_thread": dispatch,
+        "idle_by_span_ms": {k: v / 1e3 for k, v in sorted(
+            idle.items(), key=lambda kv: -kv[1])},
     }
 
 
@@ -143,6 +222,12 @@ def summarize(path: str) -> dict:
       largest), "window_ms" (the thread's first record to its last),
       "outside_ms" (that window outside both)}} for every thread that ran
       a torch operator or a CUDA call;
+    - "spans": {thread id: {span name: {"n", "ms"}}} of the program's
+      shark::<name> records; "dispatch_thread": the thread id of the
+      shark::ring_wait records, or None;
+    - "idle_by_span_ms": the card's idle time in the window (no kernel,
+      copy or memset), each instant given to the dispatch thread's
+      innermost span open then, or to "outside any span";
     - "trace" (file name) and "trace_mb"."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -182,4 +267,14 @@ def report(s: dict, top: int = 15) -> List[str]:
             f"operators {h['ops_ms']:.1f} ms, CUDA calls "
             f"{h['runtime_ms']:.1f} ms, outside both {h['outside_ms']:.1f} "
             f"ms" + (f" (CUDA calls: {calls})" if calls else ""))
+    for tid, rows in s["spans"].items():
+        role = " (dispatch)" if tid == s["dispatch_thread"] else ""
+        lines.append(f"spans of thread {tid}{role}: " + ", ".join(
+            f"{k} {r['n']}x {r['ms']:.3f} ms" for k, r in sorted(
+                rows.items(), key=lambda kv: -kv[1]["ms"])))
+    if s["idle_by_span_ms"]:
+        lines.append("card idle in the window, by the dispatch thread's "
+                     "span: " + ", ".join(
+                         f"{k} {v:.3f} ms"
+                         for k, v in s["idle_by_span_ms"].items()))
     return lines

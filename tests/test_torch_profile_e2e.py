@@ -9,8 +9,9 @@
   equal, and without a card and without --cpu exits 1;
 - shark_tpu_torch/utils/trace.py gives the totals a hand-written Chrome
   trace was written with (kernels, copies by kind, memsets, each host
-  thread's torch operators, CUDA calls and the rest), and
-  scripts/trace_report_torch.py prints them;
+  thread's torch operators, CUDA calls and the rest, the program's spans
+  by thread, and the card's idle time by the dispatch thread's span),
+  and scripts/trace_report_torch.py prints them;
 - scripts/native_stage_bench_torch.cpp compiles with g++ and times every
   read, single-end and paired (skipped without g++);
 - scripts/dispatch_bench_torch.py and scripts/parser_bench_torch.py run
@@ -176,6 +177,15 @@ TRACE = [
     _event("cpu_op", "aten::empty", 300, 10),
     _event("python_function", "loop", 0, 400),
     _event("cuda_runtime", "cudaEventSynchronize", 120, 30, tid=2),
+    # the program's spans: the dispatch thread's (1) around the card's
+    # one idle gap in the window, 115-200, and the drain's (2)
+    _event("user_annotation", "shark::ring_wait", 110, 40),
+    _event("user_annotation", "shark::warmup_batch", 150, 40),
+    _event("user_annotation", "shark::h2d", 160, 10),
+    _event("user_annotation", "shark::ring_wait", 300, 5),
+    _event("user_annotation", "shark::fetch_wait", 118, 2, tid=2),
+    _event("user_annotation", "shark::emit", 120, 30, tid=2),
+    _event("user_annotation", "ProfilerStep#1", 0, 400),
 ]
 
 
@@ -217,11 +227,27 @@ def test_trace_summary_gives_the_written_totals(tmp_path, capsys):
                      "window_ms": pytest.approx(0.030),
                      "outside_ms": pytest.approx(0.0)}
     assert s["trace"] == "host_1.1.pt.trace.json"
+    assert s["spans"] == {
+        "1": {"ring_wait": {"n": 2, "ms": pytest.approx(0.045)},
+              "warmup_batch": {"n": 1, "ms": pytest.approx(0.040)},
+              "h2d": {"n": 1, "ms": pytest.approx(0.010)}},
+        "2": {"fetch_wait": {"n": 1, "ms": pytest.approx(0.002)},
+              "emit": {"n": 1, "ms": pytest.approx(0.030)}}}
+    assert s["dispatch_thread"] == "1"
+    # the gap 115-200 by the dispatch thread's innermost span: ring_wait
+    # to 150, warmup_batch 150-160 and 170-190 around h2d, then none
+    assert s["idle_by_span_ms"] == {
+        "ring_wait": pytest.approx(0.035),
+        "warmup_batch": pytest.approx(0.030),
+        "h2d": pytest.approx(0.010),
+        "outside any span": pytest.approx(0.010)}
     rep = _script("trace_report_torch")
     assert rep.main([str(tmp_path / "prof")]) == 0
     text = capsys.readouterr().out
     assert "3 kernel records" in text and "HtoD (Pageable -> Device)" in text
     assert "host thread 2:" in text
+    assert "spans of thread 1 (dispatch): ring_wait 2x 0.045 ms" in text
+    assert "by the dispatch thread's span: ring_wait 0.035 ms" in text
     assert rep.main([str(tmp_path / "prof"), "--json"]) == 0
     assert json.loads(capsys.readouterr().out)["kernels"] == 3
     assert rep.main([str(tmp_path / "none")]) == 1
