@@ -297,14 +297,14 @@ SOAK_COVERS = ("hashed", "xl", "classic", "sharded", "replicated", "reprobe",
                "paired", "gz", "minq10", "tie_pairs", "groups")
 # (t)'s seeds of tests/test_torch_fuzz.py's run_edges: 4 (band 0, an
 # emitting innie pair, max_winners 1: the host recompute), 9 (band 1, auto,
-# B = 8192), 33 (a read of 19849 bases, auto: the Python I/O at L =
-# 32768), 53 (--max-read-len 193: the unpacked engine path, B = 8192,
+# B = 8192), 33 (a read of 19849 bases, auto: the engine packs its batch
+# at L = 32768), 53 (--max-read-len 193: the unpacked engine path, B = 8192,
 # max_winners 16) and 54 (band 2 at L = 4096, -s, max_winners 2), on the
 # classic, hashed and xl layouts; and what they must cover together
 # (edge_covers)
 EDGE_SEEDS = (4, 9, 33, 53, 54)
 EDGE_COVERS = ("band0", "band1", "band2", "band3", "auto", "rounded",
-               "unpacked", "unpacked_engine", "auto_python", "pair_emits",
+               "unpacked", "unpacked_engine", "auto_long", "pair_emits",
                "single", "host_rows", "W1", "W2", "W16", "B32", "B8192",
                "hashed", "xl", "classic")
 CARD = torch.device("cuda", 0)  # the replicated runs' device, twice

@@ -61,9 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8192,
                    help="reads per device batch (default: 8192)")
     p.add_argument("--max-read-len", type=int, default=0,
-                   help="fixed padded (fused) read length; 0 = auto (a "
-                        "parse-only pre-scan picks the native engine's "
-                        "geometry; set explicitly to skip the scan)")
+                   help="fixed padded (fused) read length; 0 = auto "
+                        "(each batch padded to its own longest read; "
+                        "--backend native picks one length by a "
+                        "parse-only pre-scan, which this flag skips)")
     p.add_argument("--backend", default="",
                    help="'' (default) runs on the CUDA card and fails "
                         "without one; 'cpu' runs the kernels' plain "

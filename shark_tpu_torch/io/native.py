@@ -30,7 +30,7 @@ ENGINE_COUNTERS = (
     "encode_ns",  # encoder threads busy, summed
     "encode_wait_ns",  # encoders blocked: nothing parsed to encode
     "next_wait_ns",  # shk_next blocked: the ring is empty
-    "next_copy_ns",  # shk_next's copies into the caller's arrays
+    "next_copy_ns",  # the copies of each batch into the caller's arrays
     "emit_ns",  # shk_emit
     "emit_bytes",  # ssv and FASTQ bytes shk_emit writes
     "batches",  # batches shk_next handed out
@@ -108,6 +108,18 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int),
         ]
         lib.shk_release.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.shk_open_auto.restype = ctypes.c_void_p
+        lib.shk_open_auto.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ]
+        lib.shk_batch_len.restype = ctypes.c_int
+        lib.shk_batch_len.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.shk_copy_batch.restype = ctypes.c_int
+        lib.shk_copy_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ]
         lib.shk_set_output.restype = ctypes.c_int
         lib.shk_set_output.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
@@ -204,6 +216,10 @@ class NativeStream:
         for codes, slot, n in ns.batches():   # codes: uint8 [B, L]
             ... dispatch to device ...
             ns.emit(slot, read_idx, gene_idx)
+
+    max_len 0 (packed mode only) is the auto geometry: each batch is
+    packed at pipeline._round_len(its longest fused read, k), so batches
+    of one stream may differ in width.
     """
 
     def __init__(
@@ -215,20 +231,29 @@ class NativeStream:
         min_quality: int,
         packed: bool = False,
         encode_threads: int = 1,
+        k: int = 0,
     ):
         lib = get_lib()
         if lib is None:
             raise RuntimeError("native engine unavailable")
         self._lib = lib
-        self._h = lib.shk_open(
-            fq1.encode(),
-            (fq2 or "").encode(),
-            batch_size,
-            max_len,
-            min_quality,
-            1 if packed else 0,
-            encode_threads,
-        )
+        if not max_len:
+            if not packed:
+                raise ValueError("the auto geometry (max_len 0) packs")
+            self._h = lib.shk_open_auto(
+                fq1.encode(), (fq2 or "").encode(), batch_size, k,
+                min_quality, encode_threads,
+            )
+        else:
+            self._h = lib.shk_open(
+                fq1.encode(),
+                (fq2 or "").encode(),
+                batch_size,
+                max_len,
+                min_quality,
+                1 if packed else 0,
+                encode_threads,
+            )
         if not self._h:
             raise OSError(f"cannot open {fq1} / {fq2} (max_len % 8 != 0?)")
         self.batch_size = batch_size
@@ -268,10 +293,23 @@ class NativeStream:
     def next_batch(self):
         """Byte-codes mode: returns (codes uint8[B,L], slot, n) or None at
         EOF. Packed mode: returns (packed u8[B,L/4], vmask u8[B,L/8], slot,
-        n) or None."""
+        n) or None; under the auto geometry L is the batch's own."""
         slot = ctypes.c_int(-1)
         u8p = ctypes.POINTER(ctypes.c_uint8)
-        if self.packed:
+        if not self.max_len:
+            n = self._lib.shk_next(self._h, None, None, None,
+                                   ctypes.byref(slot))
+            out = None
+            if n > 0:
+                L = self._lib.shk_batch_len(self._h, slot.value)
+                packed = np.empty((self.batch_size, L // 4), dtype=np.uint8)
+                vmask = np.empty((self.batch_size, L // 8), dtype=np.uint8)
+                self._lib.shk_copy_batch(
+                    self._h, slot.value, packed.ctypes.data_as(u8p),
+                    vmask.ctypes.data_as(u8p),
+                )
+                out = (packed, vmask, slot.value, n)
+        elif self.packed:
             packed = np.empty(
                 (self.batch_size, self.max_len // 4), dtype=np.uint8
             )

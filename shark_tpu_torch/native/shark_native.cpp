@@ -367,6 +367,7 @@ struct Batch {
   std::vector<uint8_t> packed;  // [batch_size, max_len/4] 2-bit codes
   std::vector<uint8_t> vmask;  // [batch_size, max_len/8] validity bits
   int n = 0;
+  int L = 0;  // auto geometry: the width this batch packs at (parser)
 
   RecView view(int side, int i) const {
     const std::vector<char>& raw = side ? raw2 : raw1;
@@ -407,7 +408,7 @@ enum Stat {
   kEncodeNs,      // encode_batch_rows, summed over encoder threads
   kEncodeWaitNs,  // blocked on cv_parsed: nothing parsed to encode
   kNextWaitNs,    // shk_next blocked on cv_filled: the ring is empty
-  kNextCopyNs,    // shk_next's copies into the caller's arrays
+  kNextCopyNs,    // shk_next's (or shk_copy_batch's) copies out
   kEmitNs,        // shk_emit
   kEmitBytes,     // ssv and FASTQ bytes shk_emit writes
   kBatches,       // batches shk_next hands out
@@ -482,6 +483,9 @@ struct Stream {
   int batch_size = 0, max_len = 0, min_quality = 0;
   bool paired = false;
   bool pack_mode = false;
+  // > 0: auto geometry (shk_open_auto) with this k: each batch packs at
+  // round_len(its longest fused read, auto_k) instead of max_len
+  int auto_k = 0;
   // producer-thread-private high-water marks for the raw span buffers
   // (read/written only from parse_batch)
   size_t raw_hwm1 = 0, raw_hwm2 = 0;
@@ -576,6 +580,64 @@ void pack_row(const uint8_t* codes, int L, uint8_t* packed, uint8_t* vmask) {
   }
 }
 
+// The padded width of a read of n fused bases, as the pipeline buckets
+// it (shark_tpu_torch/pipeline.py _round_len): multiples of 8 up to 256,
+// of 32 up to 1024, then powers of two; never below k or 8.
+int round_len(long n, int k) {
+  n = std::max(n, (long)std::max(k, 8));
+  if (n <= 256) return (int)((n + 7) & ~7L);
+  if (n <= 1024) return (int)((n + 31) & ~31L);
+  long p = 2048;
+  while (p < n) p <<= 1;
+  return (int)p;
+}
+
+// Auto geometry: the width the first n records of b pack at, from their
+// longest FUSED length (len1, or len1 + 1 + len2 for pairs).
+int batch_len(const Stream* s, const Batch& b, int n) {
+  long longest = 0;
+  for (int i = 0; i < n; i++) {
+    long fused = b.view(0, i).seq_len;
+    if (s->paired) fused += 1 + (long)b.view(1, i).seq_len;
+    if (fused > longest) longest = fused;
+  }
+  return round_len(longest, s->auto_k);
+}
+
+// encode_batch_rows' pack mode at the batch's own width b.L (auto
+// geometry): the same encode, mask and planar pack a row at a time. The
+// slot's buffers grow to the widest batch they have held and never shrink.
+int encode_batch_auto(Stream* s, Batch& b, std::string& err) {
+  const int L = b.L;
+  b.packed.resize((size_t)s->batch_size * (L / 4));
+  b.vmask.resize((size_t)s->batch_size * (L / 8));
+  std::vector<uint8_t> row((size_t)L);
+  bool overflow = false;
+  for (int i = 0; i < b.n; i++) {
+    memset(row.data(), 4, row.size());
+    RecView v1 = b.view(0, i);
+    RecView v2{};
+    if (s->paired) v2 = b.view(1, i);
+    encode_into(v1.seq, (int)v1.seq_len, row.data(), L, 0, &overflow);
+    if (s->paired)
+      encode_into(v2.seq, (int)v2.seq_len, row.data(), L,
+                  (int)v1.seq_len + 1, &overflow);
+    if (s->min_quality > 0)
+      mask_row(v1, s->paired ? &v2 : nullptr, s->min_quality, row.data(), L);
+    pack_row(row.data(), L, b.packed.data() + (size_t)i * (L / 4),
+             b.vmask.data() + (size_t)i * (L / 8));
+  }
+  size_t tail = (size_t)(s->batch_size - b.n);
+  memset(b.packed.data() + (size_t)b.n * (L / 4), 0, tail * (L / 4));
+  memset(b.vmask.data() + (size_t)b.n * (L / 8), 0, tail * (L / 8));
+  if (overflow) {  // batch_len covers every read: never taken
+    err = "read longer than its batch's width";
+    b.n = -1;
+    return -1;
+  }
+  return b.n;
+}
+
 // Parse one batch of records into `b` (no encoding — that runs on the
 // encoder thread so parse and encode/pack pipeline against each other).
 int parse_batch(Stream* s, Batch& b) {
@@ -633,6 +695,7 @@ int parse_batch(Stream* s, Batch& b) {
     b.n = -1;
     return -1;
   }
+  if (s->auto_k) b.L = batch_len(s, b, n);
   b.n = n;
   return n;
 }
@@ -643,6 +706,7 @@ int parse_batch(Stream* s, Batch& b) {
 // publishes it under the stream mutex.
 int encode_batch_rows(Stream* s, Batch& b, std::string& err) {
   if (b.n <= 0) return b.n;
+  if (s->auto_k) return encode_batch_auto(s, b, err);
   size_t row_bytes = (size_t)s->max_len;
   bool overflow = false;
   if (s->pack_mode) {
@@ -776,6 +840,9 @@ void encoder_loop(Stream* s) {
   }
 }
 
+// shk_open_auto's k for the shk_open it calls on this thread (0: none)
+thread_local int t_open_auto_k = 0;
+
 }  // namespace
 
 extern "C" {
@@ -788,6 +855,7 @@ void* shk_open(const char* fq1, const char* fq2, int batch_size, int max_len,
   s->max_len = max_len;
   s->min_quality = min_quality;
   s->pack_mode = pack_mode != 0;
+  s->auto_k = s->pack_mode ? t_open_auto_k : 0;
   s->f1 = new FastxReader(fq1);
   if (!s->f1->ok()) {
     delete s->f1;
@@ -950,6 +1018,40 @@ void shk_release(void* h, int slot) {
   std::unique_lock<std::mutex> lk(s->mu);
   s->ring[slot].state = Batch::FREE;
   s->cv_free.notify_all();
+}
+
+// shk_open in pack mode with the auto geometry: no fixed max_len, each
+// batch packs at round_len(its longest fused read, k), so no pre-pass over
+// the sample is needed and one long read widens only its own batch. The
+// ring's first touch assumes ~100-base reads, as raw_cap does.
+void* shk_open_auto(const char* fq1, const char* fq2, int batch_size, int k,
+                    int min_quality, int encode_threads) {
+  bool paired = fq2 && fq2[0];
+  t_open_auto_k = std::max(k, 1);
+  void* h = shk_open(fq1, fq2, batch_size, round_len(paired ? 201 : 100, k),
+                     min_quality, 1, encode_threads);
+  t_open_auto_k = 0;
+  return h;
+}
+
+// Under the auto geometry, the width of the batch shk_next handed out in
+// `slot` (still pinned).
+int shk_batch_len(void* h, int slot) { return ((Stream*)h)->ring[slot].L; }
+
+// Under the auto geometry, copies the batch shk_next handed out in `slot`
+// (called with null arrays) into packed [batch_size, L/4] and vmask
+// [batch_size, L/8], L = shk_batch_len. Returns 0, or -1 on a stream of
+// fixed width.
+int shk_copy_batch(void* h, int slot, uint8_t* packed, uint8_t* vmask) {
+  Stream* s = (Stream*)h;
+  if (!s->auto_k) return -1;
+  int64_t t0 = now_ns();
+  const Batch& b = s->ring[slot];
+  size_t L = (size_t)b.L;
+  memcpy(packed, b.packed.data(), (size_t)s->batch_size * (L / 4));
+  memcpy(vmask, b.vmask.data(), (size_t)s->batch_size * (L / 8));
+  s->count(kNextCopyNs, now_ns() - t0);
+  return 0;
 }
 
 // Parse-only pre-pass: longest FUSED read length (len1, or len1+1+len2

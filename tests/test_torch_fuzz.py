@@ -548,8 +548,8 @@ def run_edges(tmp_path, seed: int, device="cpu") -> dict:
     what it covered: "band",
     "longest", "L" (the geometries the device classifier ran), "lens",
     "max_read_len", "packed" (the engine handed over planar batches),
-    "engine" (the device run went through the native engine; auto falls
-    to the Python I/O past AUTO_NATIVE_MAX_LEN), "auto_len", "single",
+    "engine" (the device run went through the native engine: always, at
+    any length), "auto_len", "single",
     "max_winners", "batch_size", "layout", "paired", "pair_emits" (reads
     of a paired seed emitted at C), "host_rows" (rows the host recomputed
     in the ties pass's device run), "should_overflow", "group_rows",
@@ -577,8 +577,6 @@ def run_edges(tmp_path, seed: int, device="cpu") -> dict:
             batch_size=w["batch_size"], max_read_len=w["max_read_len"],
             max_winners=W, probe=probe, **kw)
 
-    engine = not (w["lens"] == "auto"
-                  and w["longest"] > pipeline.AUTO_NATIVE_MAX_LEN)
     launched = dict.fromkeys(kernels.KERNELS, 0)
     outs, seen, configs, geometries = {}, {}, {}, set()
 
@@ -592,7 +590,7 @@ def run_edges(tmp_path, seed: int, device="cpu") -> dict:
         counts = kernels.LAUNCHES.snapshot()
         for kernel, n in counts.items():
             launched[kernel] += n
-        native_run = mode == "host" or (mode != "python" and engine)
+        native_run = mode != "python"
         assert stats.get("native", False) == native_run, (seed, name)
         if w["lens"] == "auto" and native_run:
             assert stats["auto_max_read_len"] == pipeline._round_len(
@@ -643,7 +641,7 @@ def run_edges(tmp_path, seed: int, device="cpu") -> dict:
     return {
         "band": w["band"], "longest": w["longest"], "L": sorted(geometries),
         "lens": w["lens"], "max_read_len": w["max_read_len"],
-        "packed": engine and w["lens"] != "unpacked", "engine": engine,
+        "packed": w["lens"] != "unpacked", "engine": True,
         "auto_len": seen["native"][0].get("auto_max_read_len"),
         "single": w["single"], "max_winners": W,
         "batch_size": w["batch_size"], "layout": layout,
@@ -660,16 +658,22 @@ def run_edges(tmp_path, seed: int, device="cpu") -> dict:
     }
 
 
+# the auto length's longest read past which the engine, when it took one
+# width for the whole sample, left the sample to the Python I/O
+LONG_AUTO = 2048
+
+
 def edge_covers(got: dict) -> set:
     """What one run_edges result covers: its band, max_winners, batch
     size, --max-read-len kind and layout, and where reached the unpacked
-    engine path, the auto length past the engine's ceiling (the Python
+    engine path, the auto length past LONG_AUTO bases (on the engine,
+    where the sample's one pre-scanned width once sent it to the Python
     I/O), a paired seed's emitting pairs, -s and the host recompute."""
     out = {f"band{got['band']}", f"W{got['max_winners']}",
            f"B{got['batch_size']}", got["lens"], got["layout"]}
-    for key, on in (("unpacked_engine", got["engine"]
-                     and got["lens"] == "unpacked"),
-                    ("auto_python", not got["engine"]),
+    for key, on in (("unpacked_engine", got["lens"] == "unpacked"),
+                    ("auto_long", got["lens"] == "auto"
+                     and got["longest"] > LONG_AUTO),
                     ("pair_emits", got["pair_emits"]),
                     ("single", got["single"]),
                     ("host_rows", got["host_rows"])):
