@@ -34,6 +34,7 @@ ENGINE_COUNTERS = (
     "emit_ns",  # shk_emit
     "emit_bytes",  # ssv and FASTQ bytes shk_emit writes
     "batches",  # batches shk_next handed out
+    "direct_rows",  # rows the auto geometry packed straight from the reads
 )
 
 

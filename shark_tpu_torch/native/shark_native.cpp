@@ -412,6 +412,7 @@ enum Stat {
   kEmitNs,        // shk_emit
   kEmitBytes,     // ssv and FASTQ bytes shk_emit writes
   kBatches,       // batches shk_next hands out
+  kDirectRows,    // rows encode_batch_auto packs (pack_direct)
   kStats
 };
 
@@ -604,37 +605,98 @@ int batch_len(const Stream* s, const Batch& b, int n) {
   return round_len(longest, s->auto_k);
 }
 
+// The direct planar pack of the auto geometry. A base's 2-bit code needs
+// no table: for A C G T a c g t, ((ch >> 1) ^ (ch >> 2)) & 3 is 0 1 2 3,
+// and a byte is valid iff ch & 0xDF is one of 'A' 'C' 'G' 'T' (N, IUPAC
+// letters and every other byte stay invalid, as in CODE). Eight bytes at
+// a time in a uint64_t, one byte a lane.
+constexpr uint64_t kLanes = 0x0101010101010101ULL;
+
+inline uint64_t load8(const uint8_t* p) {
+  uint64_t w;
+  memcpy(&w, p, 8);
+  return w;
+}
+
+// 0x80 in each zero lane of v, 0 elsewhere (exact: no carry crosses a lane)
+inline uint64_t zero_lanes(uint64_t v) {
+  const uint64_t lo7 = 0x7F * kLanes;
+  return ~(((v & lo7) + lo7) | v) & (0x80 * kLanes);
+}
+
+// Eight bytes -> eight lanes of code | 4 where valid, 0 where not.
+inline uint64_t classify8(uint64_t w) {
+  uint64_t x = w & (0xDF * kLanes);
+  uint64_t ok =
+      zero_lanes(x ^ ('A' * kLanes)) | zero_lanes(x ^ ('C' * kLanes)) |
+      zero_lanes(x ^ ('G' * kLanes)) | zero_lanes(x ^ ('T' * kLanes));
+  uint64_t v = ok >> 7;  // 1 in each valid lane
+  return (((w >> 1) ^ (w >> 2)) & (v * 3)) | (v << 2);
+}
+
+// One row at width L, byte for byte pack_row(encode_into(...),
+// mask_row(...)): the fused read's own bytes (mate 1, a zero separator,
+// mate 2, zeros to L) go into buf, mask_row masks them, they are
+// classified in place, and each plane slice is packed a word at a time.
+// A masked position holds byte 4, which classify8 reads as invalid. buf
+// holds L + 8 bytes, the last 8 zero (the last slice's word reads past
+// L); fused <= L.
+void pack_direct(const RecView& v1, const RecView* v2, int min_quality,
+                 int L, uint8_t* buf, uint8_t* packed, uint8_t* vmask) {
+  int fused = (int)v1.seq_len;
+  memcpy(buf, v1.seq, v1.seq_len);
+  if (v2) {
+    buf[fused] = 0;
+    memcpy(buf + fused + 1, v2->seq, v2->seq_len);
+    fused += 1 + (int)v2->seq_len;
+  }
+  memset(buf + fused, 0, (size_t)(L - fused));
+  if (min_quality > 0) mask_row(v1, v2, min_quality, buf, L);
+  for (int i = 0; i < L; i += 8) {
+    uint64_t w = classify8(load8(buf + i));
+    memcpy(buf + i, &w, 8);
+  }
+  const int L4 = L / 4, L8 = L / 8;
+  for (int j = 0; j < L4; j += 8) {
+    uint64_t p = 0;
+    for (int r = 0; r < 4; r++)
+      p |= (load8(buf + r * L4 + j) & (3 * kLanes)) << (2 * r);
+    memcpy(packed + j, &p, (size_t)std::min(8, L4 - j));
+  }
+  for (int j = 0; j < L8; j += 8) {
+    uint64_t m = 0;
+    for (int r = 0; r < 8; r++)
+      m |= ((load8(buf + r * L8 + j) >> 2) & kLanes) << r;
+    memcpy(vmask + j, &m, (size_t)std::min(8, L8 - j));
+  }
+}
+
 // encode_batch_rows' pack mode at the batch's own width b.L (auto
-// geometry): the same encode, mask and planar pack a row at a time. The
-// slot's buffers grow to the widest batch they have held and never shrink.
+// geometry), a row at a time through pack_direct. The slot's buffers grow
+// to the widest batch they have held and never shrink.
 int encode_batch_auto(Stream* s, Batch& b, std::string& err) {
   const int L = b.L;
   b.packed.resize((size_t)s->batch_size * (L / 4));
   b.vmask.resize((size_t)s->batch_size * (L / 8));
-  std::vector<uint8_t> row((size_t)L);
-  bool overflow = false;
+  std::vector<uint8_t> buf((size_t)L + 8, 0);
   for (int i = 0; i < b.n; i++) {
-    memset(row.data(), 4, row.size());
     RecView v1 = b.view(0, i);
     RecView v2{};
     if (s->paired) v2 = b.view(1, i);
-    encode_into(v1.seq, (int)v1.seq_len, row.data(), L, 0, &overflow);
-    if (s->paired)
-      encode_into(v2.seq, (int)v2.seq_len, row.data(), L,
-                  (int)v1.seq_len + 1, &overflow);
-    if (s->min_quality > 0)
-      mask_row(v1, s->paired ? &v2 : nullptr, s->min_quality, row.data(), L);
-    pack_row(row.data(), L, b.packed.data() + (size_t)i * (L / 4),
-             b.vmask.data() + (size_t)i * (L / 8));
+    long fused = (long)v1.seq_len + (s->paired ? 1 + (long)v2.seq_len : 0);
+    if (fused > L) {  // batch_len covers every read: never taken
+      err = "read longer than its batch's width";
+      b.n = -1;
+      return -1;
+    }
+    pack_direct(v1, s->paired ? &v2 : nullptr, s->min_quality, L,
+                buf.data(), b.packed.data() + (size_t)i * (L / 4),
+                b.vmask.data() + (size_t)i * (L / 8));
   }
   size_t tail = (size_t)(s->batch_size - b.n);
   memset(b.packed.data() + (size_t)b.n * (L / 4), 0, tail * (L / 4));
   memset(b.vmask.data() + (size_t)b.n * (L / 8), 0, tail * (L / 8));
-  if (overflow) {  // batch_len covers every read: never taken
-    err = "read longer than its batch's width";
-    b.n = -1;
-    return -1;
-  }
+  s->count(kDirectRows, b.n);
   return b.n;
 }
 
