@@ -35,8 +35,9 @@ class SharkConfig:
 
     # Device-execution knobs (no reference analogue).
     batch_size: int = 8192  # reads per device batch
-    # 0 = auto: the native path pre-scans the sample (parse-only pass) for
-    # the exact max fused length; the Python path pads per batch.
+    # 0 = auto: on a device each batch runs at its own width (its longest
+    # fused read, rounded); only --backend native pre-scans the sample
+    # (a parse-only pass) for the exact max fused length.
     max_read_len: int = 0
     max_winners: int = 16  # per-read winner-compaction width on device
     # "" = the CUDA card (cuda:0; raises when there is none); "cpu" runs
@@ -57,8 +58,6 @@ class SharkConfig:
     # builds, else the xl layout, else classic (shark_tpu's rule); "xl"
     # and "classic" force a layout.
     probe: str = "auto"
-    # Batches per device->host verdict fetch (1 = per-batch fetches).
-    fetch_group: int = 1
     # Checkpoint/resume (native path; no reference analogue): writes a
     # <ssv>.progress sidecar per drained batch and restarts an interrupted
     # run from the last checkpoint, byte-identically.
@@ -92,11 +91,6 @@ class SharkConfig:
             raise ValueError(
                 "probe must be one of: auto, hashed, xl, classic"
             )
-        if not (1 <= self.fetch_group <= 6):
-            # the native prefetch ring (kRing = 20) must cover
-            # group * (lookahead_depth + 2) pinned batches; shk_next also
-            # guards against wrap at runtime, but fail fast here
-            raise ValueError("fetch_group must be in [1, 6]")
         if self.backend not in ("", "cpu", "native"):
             raise ValueError(
                 "backend must be '' (the CUDA card), 'cpu' or 'native'"

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ from shark_tpu_torch.index.build import build_index
 from shark_tpu_torch.index.structure import SharkIndex
 from shark_tpu_torch.io.encode import ReadBatch, encode_batch, fused_length
 from shark_tpu_torch.io.fastx import read_fasta, read_fastq_pairs
-from shark_tpu_torch.io.writer import OutputWriter
+from shark_tpu_torch.io.pystream import PyStream
 from shark_tpu_torch.parallel.mesh import make_devices
 from shark_tpu_torch.utils.timers import (
     PhaseTimer,
@@ -150,40 +150,6 @@ class _ShimIndex:
         self.size_bits = index.size_bits
         self.assoc = _ShimAssoc(index)
         self.gene_names = index.gene_names
-
-
-def _drain(
-    cfg: SharkConfig,
-    index: SharkIndex,
-    batch: ReadBatch,
-    result,
-    writer: OutputWriter,
-    max_winners: int,
-    reprobe=None,
-    groups=None,
-) -> None:
-    """Decode one batch's verdicts and emit through the Python writer
-    (non-native path); shares all verdict/overflow logic with the native
-    path via _winner_pairs."""
-    ri, gi = _winner_pairs(
-        cfg, index, result, batch.n, batch.codes, max_winners,
-        reprobe=reprobe, groups=groups,
-    )
-    names = index.gene_names
-    rec2 = batch.recs2
-    n = len(ri)
-    i = 0
-    while i < n:
-        r = ri[i]
-        j = i
-        while j < n and ri[j] == r:
-            j += 1
-        writer.emit_read(
-            [names[g] for g in gi[i:j]],
-            batch.recs1[r],
-            rec2[r] if rec2 is not None else None,
-        )
-        i = j
 
 
 def _winner_pairs(
@@ -481,7 +447,6 @@ def _load_progress(path: str, cfg: SharkConfig):
     recorded offsets and return the checkpoint state dict.
     Returns None (fresh start) when no checkpoint exists."""
     import json
-    import os
 
     if not os.path.exists(path):
         return None
@@ -512,38 +477,49 @@ def _load_progress(path: str, cfg: SharkConfig):
     return st
 
 
-def _write_progress(path: str, cfg: SharkConfig, reads_done: int, offsets, counts):
-    """Atomically replace the sidecar (tmp + fsync + rename). Crash-safety
-    scope: process death (OOM, preemption, device loss). True power-loss
-    durability would additionally require fsyncing the output files per
-    batch, which this deliberately does not do."""
-    import json
-    import os
+class _Resume(NamedTuple):
+    """A pass's --resume state: the sidecar ("" when resume is off), the
+    reads it records as classified and its output counts."""
 
-    tmp = path + ".tmp"
+    path: str = ""
+    reads_done: int = 0
+    assoc: int = 0
+    reads_out: int = 0
+
+
+def _write_progress(cfg: SharkConfig, resume: _Resume, stream, reads_done):
+    """After a drained batch, with --resume: atomically replace the
+    sidecar (tmp + fsync + rename). Crash-safety scope: process death
+    (OOM, preemption, device loss). True power-loss durability would
+    additionally require fsyncing the output files per batch, which this
+    deliberately does not do."""
+    import json
+
+    if not resume.path:
+        return
+    tmp = resume.path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(
             {
                 "identity": _progress_identity(cfg),
                 "reads_done": reads_done,
-                "offsets": list(offsets),
-                "n_associations": counts[0],
-                "n_reads_out": counts[1],
+                "offsets": list(stream.tell()),
+                "n_associations": resume.assoc + int(stream.n_associations),
+                "n_reads_out": resume.reads_out + int(stream.n_reads_out),
             },
             f,
         )
         f.flush()
         os.fsync(f.fileno())
-    os.replace(tmp, path)
+    os.replace(tmp, resume.path)
 
 
-def _resume_state(cfg: SharkConfig):
-    """--resume bookkeeping shared by the native classify paths:
-    (progress_path, reads_done0, base_associations, base_reads_out).
-    Validates the checkpointable-output constraints; all zeros/empty when
-    resume is off or no sidecar matches this run's identity."""
+def _resume_state(cfg: SharkConfig) -> _Resume:
+    """--resume bookkeeping shared by the engine's loops. Validates the
+    checkpointable-output constraints; all zeros/empty when resume is off
+    or no sidecar matches this run's identity."""
     if not cfg.resume:
-        return "", 0, 0, 0
+        return _Resume()
     if not cfg.ssv_path:
         raise ValueError(
             "--resume requires --ssv FILE (stdout cannot be checkpointed)"
@@ -556,8 +532,8 @@ def _resume_state(cfg: SharkConfig):
     progress_path = cfg.ssv_path + ".progress"
     st0 = _load_progress(progress_path, cfg)
     if st0 is None:
-        return progress_path, 0, 0, 0
-    return (
+        return _Resume(progress_path)
+    return _Resume(
         progress_path,
         int(st0["reads_done"]),
         int(st0.get("n_associations", 0)),
@@ -579,95 +555,101 @@ def _skip_resumed(ns, skip_left: int) -> None:
         skip_left -= nb[-1]
 
 
-def _run_native(
-    cfg: SharkConfig, index: SharkIndex, classifier, timer, spans: Spans
-) -> dict:
-    """Fast path: parse/encode/write in the native C++ engine, device in a
-    DEPTH-deep software pipeline. cfg.max_read_len 0 is the auto
-    geometry: the engine packs each batch at _round_len(its longest fused
-    read), the warm-up runs at the first batch's width, and
-    stats["auto_max_read_len"] is the widest batch. `spans` is the pass's
-    record (run_pipeline): the drain thread records into it too, and it
-    keeps the drain's counts, among them "batch_geometries" (the distinct
-    widths the pass ran) and "narrow_batches" (batches narrower than its
-    widest).
-
-    With cfg.resume, a `<ssv>.progress` sidecar records (reads classified,
-    output byte offsets) after every drained batch; an interrupted run
-    restarts by truncating the outputs to the last checkpoint, skipping the
-    already-classified reads at parse speed (no device work),
-    and appending — byte-identical to an uninterrupted run. The reference
-    has no recovery story (SURVEY §5); a crash there restarts from zero."""
+def _open_engine(cfg: SharkConfig, index: SharkIndex, packed: bool,
+                 resume: _Resume):
+    """The native engine's NativeStream over the sample, writing the
+    pass's outputs (appended to after a resumed prefix)."""
     from shark_tpu_torch.io.native import NativeStream
 
-    progress_path, reads_done0, base_assoc, base_reads_out = _resume_state(
-        cfg
+    ns = NativeStream(
+        cfg.sample1_path,
+        cfg.sample2_path,
+        cfg.batch_size,
+        cfg.max_read_len,
+        cfg.min_quality,
+        packed=packed,
+        # -t N provisions extra host encode threads (the reference's
+        # worker-thread flag mapped to the one host stage that scales;
+        # parse itself is sequential)
+        encode_threads=max(1, min(cfg.threads - 1, 8)),
+        k=cfg.k,
     )
+    ns.set_output(
+        1, cfg.ssv_path, cfg.out1_path, cfg.out2_path,
+        append=resume.reads_done > 0,
+    )
+    ns.register_genes(index.gene_names)
+    return ns
 
-    use_packed = cfg.max_read_len % 8 == 0
-    with span("stream_open"):
-        ns = NativeStream(
-            cfg.sample1_path,
-            cfg.sample2_path,
-            cfg.batch_size,
-            cfg.max_read_len,
-            cfg.min_quality,
-            packed=use_packed,
-            # -t N provisions extra host encode threads (the reference's
-            # worker-thread flag mapped to the one host stage that scales;
-            # parse itself is sequential)
-            encode_threads=max(1, min(cfg.threads - 1, 8)),
-            k=cfg.k,
-        )
-        ns.set_output(
-            1, cfg.ssv_path, cfg.out1_path, cfg.out2_path,
-            append=reads_done0 > 0,
-        )
-        ns.register_genes(index.gene_names)
 
-    # The drain (fetch verdicts -> winner pairs -> native emit) runs on its
-    # own thread so the device never waits for host post-processing; the
-    # bounded queue caps device-side in-flight batches. Packed verdicts of
-    # GROUP consecutive batches are concatenated on device and fetched in
-    # ONE device->host transfer.
+def _finish(cfg: SharkConfig, index: SharkIndex, stream, timer: PhaseTimer,
+            resume: _Resume, n_reads: int, warm_s: float, **extra) -> dict:
+    """The end of a pass of either engine loop: its stats, the stream
+    closed and the resume sidecar removed. The counts are whole-sample
+    totals (a resumed prefix's come from the sidecar, so they match the
+    files); classify_s covers only this invocation, so throughput math
+    subtracts resumed_reads. warmup_s is the time since the run began, of
+    which run_pipeline takes index_s off."""
+    timer.mark("Sample completed")
+    timer.rate("throughput", n_reads, "reads")
+    elapsed = timer.elapsed()
+    stats = {
+        "n_reads": n_reads + resume.reads_done,
+        "n_associations": resume.assoc + int(stream.n_associations),
+        "n_reads_out": resume.reads_out + int(stream.n_reads_out),
+        "n_genes": index.n_genes,
+        "elapsed_s": elapsed,
+        "warmup_s": warm_s,
+        "classify_s": elapsed - warm_s,
+        **extra,
+        "engine": stream.stats(),
+    }
+    if resume.reads_done:
+        stats["resumed_reads"] = resume.reads_done
+    stream.close()
+    if resume.path and os.path.exists(resume.path):
+        os.remove(resume.path)
+    return stats
+
+
+def _run_native(
+    cfg: SharkConfig, index: SharkIndex, classifier, timer, spans: Spans,
+    stream, resume: _Resume,
+) -> dict:
+    """The one loop that serves a device run, fed by either of two streams
+    of one interface: the native C++ engine's NativeStream (parse, encode
+    and write in C++; planar 2-bit batches, or byte codes where a fixed
+    max_read_len is not a multiple of 8) or the Python I/O path's PyStream
+    (byte codes). The card runs in a DEPTH-deep software pipeline.
+    cfg.max_read_len 0 is the auto geometry: each batch comes at
+    _round_len(its longest fused read), the warm-up runs at the first
+    batch's width, and stats["auto_max_read_len"] is the widest batch.
+    `spans` is the pass's record (run_pipeline): the drain thread records
+    into it too, and it keeps the drain's counts, among them
+    "batch_geometries" (the distinct widths the pass ran) and
+    "narrow_batches" (batches narrower than its widest).
+
+    With cfg.resume (the engine only), a `<ssv>.progress` sidecar records
+    (reads classified, output byte offsets) after every drained batch; an
+    interrupted run restarts by truncating the outputs to the last
+    checkpoint, skipping the already-classified reads at parse speed (no
+    device work), and appending — byte-identical to an uninterrupted run.
+    The reference has no recovery story (SURVEY §5); a crash there
+    restarts from zero."""
+    # The drain (fetch verdicts -> winner pairs -> emit) runs on its own
+    # thread so the device never waits for host post-processing; the
+    # bounded queue caps device-side in-flight batches. Each batch's
+    # packed verdicts leave the card in one device->host copy.
     import queue as queue_mod
     import threading
 
-    GROUP = max(1, cfg.fetch_group)
-    DEPTH = max(1, 8 // GROUP)  # keep ~8 batches of device-side lookahead
+    DEPTH = 8  # batches of device-side lookahead
     q: "queue_mod.Queue" = queue_mod.Queue(maxsize=DEPTH)
     drain_err: List[BaseException] = []
-
-    # the auto geometry knows a width once the first batch is packed: that
-    # batch waits here, and the dispatch loop takes it first
-    taken = []
-    warm_len = cfg.max_read_len
-    if not warm_len:
-        try:
-            with span("ring_wait"):
-                taken.append(ns.next_batch())
-        except BaseException:
-            ns.close()
-            raise
-        warm_len = taken[0][0].shape[1] * 4 if taken[0] else 0
-    # warm-up: builds the CUDA kernels when missing or stale, and loads them
-    if warm_len:
-        with span("warmup_batch"):
-            if use_packed:
-                wp = np.zeros((cfg.batch_size, warm_len // 4),
-                              dtype=np.uint8)
-                wv = np.zeros((cfg.batch_size, warm_len // 8),
-                              dtype=np.uint8)
-                _np(classifier.call_packed(wp, wv)[0])
-            else:
-                warm = np.full((cfg.batch_size, warm_len), 4,
-                               dtype=np.uint8)
-                _np(classifier(warm)[0])
-    timer.mark("Device warmup")
-    warm_s = timer.elapsed()
+    scale = 4 if stream.packed else 1  # bases a column of a batch
 
     # One drain thread, as in shark_tpu.
-    reads_done = [reads_done0]  # drained reads (checkpoint counter)
+    reads_done = [resume.reads_done]  # drained reads (checkpoint counter)
     # Tie-heavy speculation: once a batch has taken the winner-pair-stream
     # path, the drain records the capacity here and the MAIN loop starts
     # dispatching extract_pairs right after each classify kernel (d2h copy
@@ -701,80 +683,80 @@ def _run_native(
                 return
             if drain_err:
                 continue  # keep the queue moving so q.put never deadlocks
-            entries, cat = item
+            codes, slot, n, result, spec, copy = item
             try:
                 with span("fetch_wait"):
-                    packed_all = cat.numpy()
-                off = 0
-                for c_, s_, n_, r_, spec_ in entries:
-                    with span("winner_pairs"):
-                        ri, gi = _winner_pairs(
-                            cfg,
-                            index,
-                            r_,
-                            n_,
-                            c_,
-                            cfg.max_winners,
-                            packed_np=packed_all[off : off + cfg.batch_size],
-                            reprobe=getattr(classifier, "reprobe", None),
-                            spec=spec_,
-                            spec_state=spec_state,
-                            groups=classifier.groups,
-                            counters=spans.counts,
-                        )
-                    with span("emit"):
-                        ns.emit(s_, ri, gi)
-                    off += cfg.batch_size
-                    reads_done[0] += n_
-                    if progress_path:
-                        _write_progress(
-                            progress_path, cfg, reads_done[0], ns.tell(),
-                            (
-                                base_assoc + int(ns.n_associations),
-                                base_reads_out + int(ns.n_reads_out),
-                            ),
-                        )
+                    packed_np = copy.numpy()
+                with span("winner_pairs"):
+                    ri, gi = _winner_pairs(
+                        cfg,
+                        index,
+                        result,
+                        n,
+                        codes,
+                        cfg.max_winners,
+                        packed_np=packed_np,
+                        reprobe=getattr(classifier, "reprobe", None),
+                        spec=spec,
+                        spec_state=spec_state,
+                        groups=classifier.groups,
+                        counters=spans.counts,
+                    )
+                with span("emit"):
+                    stream.emit(slot, ri, gi)
+                reads_done[0] += n
+                _write_progress(cfg, resume, stream, reads_done[0])
             except BaseException as e:  # noqa: BLE001 - reraised on main
                 drain_err.append(e)
-
-    def flush_group(group):
-        if not group:
-            return
-        with span("group_copy"):  # its count: the fetched groups
-            cat = _HostCopy(
-                torch.cat([e[3][0] for e in group])
-                if len(group) > 1
-                else group[0][3][0]
-            )
-        with span("queue_wait"):
-            q.put((list(group), cat))
-        group.clear()
 
     th = threading.Thread(target=drainer, daemon=True)
     th.start()
     n_reads = 0
     n_batches = 0
     widths: List[int] = []  # each batch's width, in order
-    group: List[tuple] = []
     try:
-        _skip_resumed(ns, reads_done0)
+        # the auto geometry knows a width once the first batch is read:
+        # that batch waits here, and the dispatch loop takes it first
+        taken = []
+        warm_len = cfg.max_read_len
+        if not warm_len:
+            with span("ring_wait"):
+                taken.append(stream.next_batch())
+            warm_len = taken[0][0].shape[1] * scale if taken[0] else 0
+        # warm-up: builds the CUDA kernels when missing or stale, and
+        # loads them
+        if warm_len:
+            with span("warmup_batch"):
+                if stream.packed:
+                    wp = np.zeros((cfg.batch_size, warm_len // 4),
+                                  dtype=np.uint8)
+                    wv = np.zeros((cfg.batch_size, warm_len // 8),
+                                  dtype=np.uint8)
+                    _np(classifier.call_packed(wp, wv)[0])
+                else:
+                    warm = np.full((cfg.batch_size, warm_len), 4,
+                                   dtype=np.uint8)
+                    _np(classifier(warm)[0])
+        timer.mark("Device warmup")
+        warm_s = timer.elapsed()
 
+        _skip_resumed(stream, resume.reads_done)
         while not drain_err:
             if taken:
                 nb = taken.pop()
             else:
                 with span("ring_wait"):
-                    nb = ns.next_batch()
+                    nb = stream.next_batch()
             if nb is None:
                 break
-            widths.append(nb[0].shape[1] * (4 if use_packed else 1))
-            if use_packed:
+            widths.append(nb[0].shape[1] * scale)
+            if stream.packed:
                 packed, vmask, slot, n = nb
-                host_codes = (packed, vmask)
+                codes = (packed, vmask)
                 result = classifier.call_packed(packed, vmask)
             else:
-                host_codes, slot, n = nb
-                result = classifier(host_codes)
+                codes, slot, n = nb
+                result = classifier(codes)
             spec = None
             spec_cap = spec_state["cap"]
             if spec_cap and not cfg.single:
@@ -785,14 +767,14 @@ def _run_native(
                         ),
                         spec_cap,
                     )
+            with span("group_copy"):  # the batch's one verdict fetch
+                copy = _HostCopy(result[0])
+            with span("queue_wait"):
+                q.put((codes, slot, n, result, spec, copy))
             n_reads += n
             n_batches += 1
-            group.append((host_codes, slot, n, result, spec))
-            if len(group) == GROUP:
-                flush_group(group)
             if cfg.fail_after_batches and n_batches >= cfg.fail_after_batches:
                 raise RuntimeError("injected failure (fail_after_batches)")
-        flush_group(group)
         with span("drain_join"):
             q.put(None)
             th.join()
@@ -809,7 +791,7 @@ def _run_native(
         except Exception:
             pass
         try:
-            ns.close()
+            stream.close()
         except Exception:
             pass
         raise
@@ -817,38 +799,17 @@ def _run_native(
     widest = max(widths, default=0)
     spans.counts["batch_geometries"] = len(set(widths))
     spans.counts["narrow_batches"] = sum(w < widest for w in widths)
-    timer.mark("Sample completed")
-    timer.rate("throughput", n_reads, "reads")
-    elapsed = timer.elapsed()
-    # whole-sample totals (resumed prefix counts come from the sidecar so
-    # stats match the files); classify_s covers only this invocation —
-    # subtract resumed_reads for throughput math
-    stats = {
-        "n_reads": n_reads + reads_done0,
-        "n_associations": base_assoc + int(ns.n_associations),
-        "n_reads_out": base_reads_out + int(ns.n_reads_out),
-        "n_genes": index.n_genes,
-        "elapsed_s": elapsed,
-        "warmup_s": warm_s,
-        "classify_s": elapsed - warm_s,
-        "native": True,
-        "fetch_groups": spans.n("group_copy"),
+    stats = _finish(
+        cfg, index, stream, timer, resume, n_reads, warm_s,
+        native=not isinstance(stream, PyStream),
+        fetch_groups=n_batches,
         **{name: spans.counts[name] for name in DRAIN_COUNTS},
-        "batch_geometries": spans.counts["batch_geometries"],
-        "narrow_batches": spans.counts["narrow_batches"],
-        "probe": classifier.probe,
-        "engine": ns.stats(),
-    }
+        batch_geometries=spans.counts["batch_geometries"],
+        narrow_batches=spans.counts["narrow_batches"],
+        probe=classifier.probe,
+    )
     if not cfg.max_read_len and widest:
         stats["auto_max_read_len"] = widest
-    if reads_done0:
-        stats["resumed_reads"] = reads_done0
-    ns.close()
-    if progress_path:
-        import os
-
-        if os.path.exists(progress_path):
-            os.remove(progress_path)
     return stats
 
 
@@ -861,32 +822,16 @@ def _run_native_host(cfg: SharkConfig, index: SharkIndex, timer: PhaseTimer) -> 
     phase-3 threading model (main.cpp:219-223), with deterministic
     input-order output regardless of thread count. Resumes like
     _run_native (a <ssv>.progress sidecar after every batch)."""
-    from shark_tpu_torch.io.native import NativeStream, host_classify
+    from shark_tpu_torch.io.native import host_classify
 
-    progress_path, reads_done0, base_assoc, base_reads_out = _resume_state(
-        cfg
-    )
-
-    ns = NativeStream(
-        cfg.sample1_path,
-        cfg.sample2_path,
-        cfg.batch_size,
-        cfg.max_read_len,
-        cfg.min_quality,
-        packed=False,  # host classify consumes byte codes directly
-        encode_threads=max(1, min(cfg.threads - 1, 8)),
-    )
+    resume = _resume_state(cfg)
+    # host classify consumes byte codes directly
+    ns = _open_engine(cfg, index, False, resume)
+    timer.mark("Host classify ready")
+    warm_s = timer.elapsed()
+    n_reads = 0
     try:
-        ns.set_output(
-            1, cfg.ssv_path, cfg.out1_path, cfg.out2_path,
-            append=reads_done0 > 0,
-        )
-        ns.register_genes(index.gene_names)
-        timer.mark("Host classify ready")
-        warm_s = timer.elapsed()
-
-        n_reads = 0
-        _skip_resumed(ns, reads_done0)
+        _skip_resumed(ns, resume.reads_done)
         while True:
             with span("ring_wait"):
                 nb = ns.next_batch()
@@ -900,45 +845,15 @@ def _run_native_host(cfg: SharkConfig, index: SharkIndex, timer: PhaseTimer) -> 
             with span("emit"):
                 ns.emit(slot, ri, gi)
             n_reads += n
-            if progress_path:
-                _write_progress(
-                    progress_path, cfg, reads_done0 + n_reads, ns.tell(),
-                    (
-                        base_assoc + int(ns.n_associations),
-                        base_reads_out + int(ns.n_reads_out),
-                    ),
-                )
+            _write_progress(cfg, resume, ns, resume.reads_done + n_reads)
     except BaseException:
         try:
             ns.close()
         except Exception:
             pass
         raise
-
-    timer.mark("Sample completed")
-    timer.rate("throughput", n_reads, "reads")
-    elapsed = timer.elapsed()
-    stats = {
-        "n_reads": n_reads + reads_done0,
-        "n_associations": base_assoc + int(ns.n_associations),
-        "n_reads_out": base_reads_out + int(ns.n_reads_out),
-        "n_genes": index.n_genes,
-        "elapsed_s": elapsed,
-        "warmup_s": warm_s,
-        "classify_s": elapsed - warm_s,
-        "native": True,
-        "probe": "host",
-        "engine": ns.stats(),
-    }
-    if reads_done0:
-        stats["resumed_reads"] = reads_done0
-    ns.close()
-    if progress_path:
-        import os
-
-        if os.path.exists(progress_path):
-            os.remove(progress_path)
-    return stats
+    return _finish(cfg, index, ns, timer, resume, n_reads, warm_s,
+                   native=True, probe="host")
 
 
 def load_or_build_index(cfg: SharkConfig, timer: PhaseTimer) -> SharkIndex:
@@ -982,7 +897,6 @@ def _start_index_save(index: SharkIndex, path: str) -> None:
 
     def _bg():
         try:
-            import os
             import shutil
 
             if path.endswith(".npz"):
@@ -1071,7 +985,6 @@ def _start_len_scan(cfg: SharkConfig, ssv_stream):
 def _regular_files(*paths: str) -> bool:
     """True iff every non-empty path is a regular file (the auto-length
     pre-pass reads the sample twice, which a FIFO/stream cannot replay)."""
-    import os
     import stat
 
     for p in paths:
@@ -1091,8 +1004,6 @@ def _smoke_check_inputs(cfg: SharkConfig) -> None:
     A sample that is not a regular file (a FIFO) is only checked for read
     access: opening it would take its writer's data from the one reader
     that needs it."""
-    import os
-
     paths = [] if cfg.load_index else [cfg.fasta_path]
     if cfg.load_index:
         paths.append(cfg.load_index)
@@ -1117,7 +1028,12 @@ def run_pipeline(
     `classifier` reuses a warm device classifier (bench repeat passes); its
     index must match the config. `device`: None = cfg.backend's choice
     (the CUDA card, or the CPU for --backend cpu); "cpu" asks for the
-    plain PyTorch versions. --backend native touches no device."""
+    plain PyTorch versions. --backend native touches no device.
+
+    A device run has one loop, _run_native, and two streams that feed it:
+    the native engine's, or the Python I/O path's (PyStream) for
+    --no-native, an engine that does not build, or an `ssv_stream` (a
+    text stream the associations are written to)."""
     cfg.validate()
     cfg.finalize_outputs()
     _smoke_check_inputs(cfg)
@@ -1181,9 +1097,7 @@ def _probe_opts(cfg: SharkConfig) -> dict:
     sibling "<index>.tables" directory (classify/table_cache.py: content-
     digest keyed, crc-verified — a stale or corrupt cache is detected and
     rebuilt)."""
-    import os as _os
-
-    default_t = min(4, _os.cpu_count() or 1)
+    default_t = min(4, os.cpu_count() or 1)
     # -t never LOWERS the build below its min(4, cpu) default
     opts = (
         {"threads": max(cfg.threads, default_t)} if cfg.threads > 1 else {}
@@ -1277,13 +1191,27 @@ def _run_pipeline_inner(
 
             ncfg = replace(cfg, max_read_len=native_len)
         stats = _run_native_host(ncfg, index, timer)
-        stats["index_s"] = index_s
-        stats["warmup_s"] -= index_s
-        stats["classify_s"] = stats["elapsed_s"] - index_s - stats["warmup_s"]
         if native_len != cfg.max_read_len:
             stats["auto_max_read_len"] = native_len
-        _join_index_save(index, timer)
-        return stats
+    else:
+        stats = _run_device(cfg, index, ssv_stream, timer, classifier,
+                            device, spans)
+    # both loops time warmup_s from the run's start
+    stats["index_s"] = index_s
+    stats["warmup_s"] -= index_s
+    _join_index_save(index, timer)
+    return stats
+
+
+def _run_device(
+    cfg: SharkConfig, index: SharkIndex, ssv_stream, timer: PhaseTimer,
+    classifier, device, spans: Spans,
+) -> dict:
+    """A run on a device: the classifier (reused, or made for cfg's
+    layout) and the stream _run_native serves it from. The stream is the
+    native engine's where cfg.use_native, no ssv_stream and a built engine
+    all hold, else the Python I/O path's."""
+    from shark_tpu_torch.io import native as native_mod
 
     probe = None if cfg.probe == "auto" else cfg.probe
     if classifier is not None:
@@ -1314,94 +1242,27 @@ def _run_pipeline_inner(
             probe=probe, probe_opts=_probe_opts(cfg),
         )
 
-    if cfg.use_native and ssv_stream is None:
-        from shark_tpu_torch.io import native as native_mod
-
-        # a fixed --max-read-len, or the auto geometry (each batch at its
-        # own width); resume needs the fixed one
-        if (cfg.max_read_len or not cfg.resume) and native_mod.available():
-            stats = _run_native(cfg, index, classifier, timer, spans)
-            stats["index_s"] = index_s
-            stats["warmup_s"] -= index_s
-            stats["classify_s"] = stats["elapsed_s"] - index_s - stats["warmup_s"]
-            if cfg.verbose and "auto_max_read_len" in stats:
-                print(
-                    f"[shark-tpu-torch] auto max_read_len "
-                    f"{stats['auto_max_read_len']} (widest batch; "
-                    f"{stats['batch_geometries']} batch widths)",
-                    file=sys.stderr,
-                )
-            _join_index_save(index, timer)
-            return stats
-
-    if cfg.resume:
+    engine = cfg.use_native and ssv_stream is None and native_mod.available()
+    # the engine takes a fixed --max-read-len or the auto geometry (each
+    # batch at its own width); resume needs the fixed one
+    if cfg.resume and not (engine and cfg.max_read_len):
         raise ValueError(
             "--resume requires the native engine and a fixed --max-read-len"
         )
-
-    own_ssv = None
-    if ssv_stream is None and cfg.ssv_path:
-        own_ssv = open(cfg.ssv_path, "w")
-    writer = OutputWriter(
-        ssv_stream or own_ssv or sys.stdout, cfg.out1_path, cfg.out2_path
-    )
-
-    warmed = False
-    if cfg.max_read_len:
-        # Known geometry: pay the kernels' build and load before the
-        # timed stream.
-        warm = np.full(
-            (cfg.batch_size, cfg.max_read_len), 4, dtype=np.uint8
+    resume = _resume_state(cfg)
+    with span("stream_open"):
+        stream = (
+            _open_engine(cfg, index, cfg.max_read_len % 8 == 0, resume)
+            if engine
+            else PyStream(_batches(cfg), ssv_stream, cfg.ssv_path,
+                          cfg.out1_path, cfg.out2_path, index.gene_names)
         )
-        _np(classifier(warm)[0])
-        timer.mark("Device warmup")
-        warmed = True
-    warm_s = timer.elapsed()
-
-    n_reads = 0
-    pending: List[Tuple[ReadBatch, tuple]] = []
-    DEPTH = 3  # device/host overlap depth
-    for batch in _batches(cfg):
-        if not warmed:
-            # Auto-length mode: charge the first compile (and session
-            # spin-up) to warmup, not to the serving stream, as soon as
-            # the first batch's geometry is known.
-            _np(classifier(np.full_like(batch.codes, 4))[0])
-            timer.mark("Device warmup")
-            warm_s = timer.elapsed()
-            warmed = True
-        result = classifier(batch.codes)  # async dispatch
-        pending.append((batch, result))
-        n_reads += batch.n
-        if len(pending) > DEPTH:
-            b, res = pending.pop(0)
-            _drain(
-                cfg, index, b, res, writer, cfg.max_winners,
-                reprobe=getattr(classifier, "reprobe", None),
-                groups=classifier.groups,
-            )
-    for b, res in pending:
-        _drain(
-            cfg, index, b, res, writer, cfg.max_winners,
-            reprobe=getattr(classifier, "reprobe", None),
-            groups=classifier.groups,
+    stats = _run_native(cfg, index, classifier, timer, spans, stream, resume)
+    if cfg.verbose and "auto_max_read_len" in stats:
+        print(
+            f"[shark-tpu-torch] auto max_read_len "
+            f"{stats['auto_max_read_len']} (widest batch; "
+            f"{stats['batch_geometries']} batch widths)",
+            file=sys.stderr,
         )
-    writer.close()
-    if own_ssv is not None:
-        own_ssv.close()
-    _join_index_save(index, timer)
-
-    timer.mark("Sample completed")
-    timer.rate("throughput", n_reads, "reads")
-    elapsed = timer.elapsed()
-    return {
-        "n_reads": n_reads,
-        "n_associations": writer.n_associations,
-        "n_reads_out": writer.n_reads_out,
-        "n_genes": index.n_genes,
-        "elapsed_s": elapsed,
-        "index_s": index_s,
-        "warmup_s": warm_s - index_s,
-        "classify_s": elapsed - warm_s,
-        "probe": classifier.probe,
-    }
+    return stats

@@ -8,8 +8,9 @@ speculative winner pairs run):
   stats["engine"] the engine's counters: as many batches as the loop
   took, none negative, the parser busy, emit_bytes the bytes of the
   files written, the ring's wait and copy inside the span that wraps
-  them; on the device path (fetch groups of 1 and 2, single-end and
-  paired) and on --backend native;
+  them; on the device path (single-end and paired, a fetch a batch), on
+  the Python I/O path (the same loop: the same spans and counts, the
+  same bytes) and on --backend native;
 - under torch.profiler the Chrome trace holds a user_annotation record
   shark::<name> for every span, the drain's on a thread of its own, and
   the output bytes are those of a pass without the profiler (a profiler
@@ -20,7 +21,6 @@ speculative winner pairs run):
   counts a span inside another once in the time covered.
 """
 
-import dataclasses
 import json
 import os
 import threading
@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from shark_tpu_torch import cli
+from shark_tpu_torch import cli, pipeline
 from shark_tpu_torch.io import native
 from shark_tpu_torch.pipeline import run_pipeline
 from shark_tpu_torch.utils import timers, trace
@@ -99,17 +99,19 @@ def _outputs(cfg):
     return out
 
 
-@pytest.mark.parametrize("backend,group,paired", [
-    ("cpu", 1, False), ("cpu", 2, True), ("native", 1, False)])
-def test_every_span_counts_its_work(sample, backend, group, paired):
-    cfg = dataclasses.replace(_config(sample, "run", backend, paired),
-                              fetch_group=group)
+@pytest.mark.parametrize("backend,paired,stream", [
+    ("cpu", False, "engine"), ("cpu", True, "engine"),
+    ("native", False, "engine"), ("cpu", False, "python")])
+def test_every_span_counts_its_work(sample, backend, paired, stream):
+    cfg = _config(sample, "run", backend, paired,
+                  extra=["--no-native"] if stream == "python" else [])
     t = time.perf_counter()
     stats = run_pipeline(cfg)
     wall_ms = 1e3 * (time.perf_counter() - t)
     spans, engine = stats["spans"], stats["engine"]
     files = _outputs(cfg)
     assert files[0], "the sample gave no association"
+    assert stats["native"] is (stream == "engine")
     n = {k: r["n"] for k, r in spans.items()}
     if backend == "native":
         # the last wait on the ring finds the end of the sample; the
@@ -117,31 +119,42 @@ def test_every_span_counts_its_work(sample, backend, group, paired):
         assert n == {"ring_wait": BATCHES + 1, "emit": BATCHES,
                      "prescan_wait": 1}
     else:
-        groups = -(-BATCHES // group)
         assert stats["group_rows"] > 0  # GROUP verdicts were drained
         assert 1 <= stats["group_batches"] <= BATCHES
-        assert stats["fetch_groups"] == groups
+        assert stats["fetch_groups"] == BATCHES
         assert n == {
             "ring_wait": BATCHES + 1,
             # the pass's warm-up batch is copied and launched too
             "h2d": BATCHES + 1, "launch": BATCHES + 1,
             "spec_pairs": n["spec_pairs"],
-            "group_copy": groups, "queue_wait": groups,
-            "fetch_wait": groups,
+            "group_copy": BATCHES, "queue_wait": BATCHES,
+            "fetch_wait": BATCHES,
             "winner_pairs": BATCHES, "emit": BATCHES,
             "group_expand": stats["group_batches"],
             "stream_open": 1, "warmup_batch": 1,
             "drain_join": 1}
         assert 1 <= n["spec_pairs"] <= BATCHES  # where armed
     assert all(r["ms"] >= 0 for r in spans.values())
-    assert set(engine) == set(native.ENGINE_COUNTERS)
-    assert engine["batches"] == BATCHES
-    assert all(v >= 0 for v in engine.values()), engine
-    assert engine["parse_ns"] > 0 and engine["encode_ns"] > 0
-    assert engine["emit_bytes"] == sum(len(b) for b in files)
-    # the span around next_batch holds the engine's wait and copy
-    assert (engine["next_wait_ns"] + engine["next_copy_ns"]) / 1e6 <= \
-        spans["ring_wait"]["ms"]
+    if stream == "python":
+        # the Python I/O path runs the engine's loop: its spans count
+        # what the engine's pass counts, and it writes the same bytes
+        on_engine = _config(sample, "engine", backend, paired)
+        engine_stats = run_pipeline(on_engine)
+        assert n == {k: r["n"] for k, r in engine_stats["spans"].items()}
+        for key in ("n_reads", "n_associations", "n_reads_out",
+                    "fetch_groups", *pipeline.DRAIN_COUNTS):
+            assert stats[key] == engine_stats[key], key
+        assert files == _outputs(on_engine)
+        assert engine == {}  # no engine, no engine counters
+    else:
+        assert set(engine) == set(native.ENGINE_COUNTERS)
+        assert engine["batches"] == BATCHES
+        assert all(v >= 0 for v in engine.values()), engine
+        assert engine["parse_ns"] > 0 and engine["encode_ns"] > 0
+        assert engine["emit_bytes"] == sum(len(b) for b in files)
+        # the span around next_batch holds the engine's wait and copy
+        assert (engine["next_wait_ns"] + engine["next_copy_ns"]) / 1e6 <= \
+            spans["ring_wait"]["ms"]
     covered = stats["spans_covered_ms"]
     assert covered["dispatch"] <= wall_ms
     if backend == "native":  # one thread: it emits too
