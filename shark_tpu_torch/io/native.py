@@ -203,6 +203,20 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
         ]
         lib.shk_host_free.argtypes = [ctypes.c_void_p]
+        lib.shk_decode_verdicts.restype = ctypes.c_int64
+        lib.shk_decode_verdicts.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.shk_expand_groups.restype = ctypes.c_int64
+        lib.shk_expand_groups.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
         _lib = lib
         return lib
 
@@ -581,6 +595,98 @@ def host_classify(
         return ri[:p], gi[:p]
     finally:
         lib.shk_host_free(h)
+
+
+# shk_decode_verdicts' statuses (a count of pairs is >= 0): the numpy path
+# decodes the batch; the batch ties and needs a pair stream of at least
+# its total + 2; the stream given does not end at its total
+DECODE_FALLBACK, DECODE_NEED_PAIRS, DECODE_BAD_STREAM = -1, -2, -3
+
+
+def _u32(a: np.ndarray) -> np.ndarray:
+    """`a` as contiguous uint32, viewed in place where its words are 32
+    bits (the verdicts come as int32)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind in "iu" and a.dtype.itemsize == 4:
+        return a.view(np.uint32)
+    return a.astype(np.uint32)
+
+
+class VerdictDecoder:
+    """The drain's decode of a batch's packed verdicts into (read, gene)
+    pairs in the engine (shk_decode_verdicts, shk_expand_groups), with its
+    buffers kept for a pass: the arrays a call returns are views of them,
+    valid until the next call. `groups` is the classifier's GeneGroups,
+    or None. After decode(), info holds the batch's pairs, reads with
+    several, GROUP rows, its total winner pairs and how it decoded (0
+    nothing to emit, 1 single winners, 2 from the pair stream)."""
+
+    def __init__(self, lib, groups=None):
+        self._lib = lib
+        self._groups = None
+        if groups is not None:
+            offsets = np.ascontiguousarray(groups.offsets, dtype=np.int64)
+            flat = np.ascontiguousarray(groups.flat, dtype=np.uint16)
+            self._groups = (offsets, flat, offsets.size - 1)
+        self.info = np.zeros(5, np.int64)
+        self._info_p = self.info.ctypes.data
+        self._ri = self._gi = self._grp = np.empty(0, np.int32)
+        self._out_r = self._out_g = np.empty(0, np.int32)
+
+    def decode(self, packed: np.ndarray, n: int, pairs, max_winners: int,
+               single: bool):
+        """(status or pair count, ri, gi) for rows [0, n) of `packed`,
+        with `pairs` the batch's K4 stream or None."""
+        packed = _u32(packed)
+        cap = n * max(max_winners, 1)
+        if self._ri.size < cap:
+            self._ri = np.empty(cap, np.int32)
+            self._gi = np.empty(cap, np.int32)
+        if self._grp.size < n:
+            self._grp = np.empty(n, np.int32)
+        if pairs is not None:
+            pairs = _u32(pairs)
+        got = self._lib.shk_decode_verdicts(
+            packed.ctypes.data, n,
+            None if pairs is None else pairs.ctypes.data,
+            0 if pairs is None else pairs.size,
+            max_winners, 1 if single else 0,
+            self._ri.ctypes.data, self._gi.ctypes.data, self._ri.size,
+            self._grp.ctypes.data, self._info_p,
+        )
+        return got, self._ri[:max(got, 0)], self._gi[:max(got, 0)]
+
+    def expand(self, packed: np.ndarray, n1: int):
+        """(status or pair count, ri, gi, reads with several) of the last
+        decode()'s n1 pairs with its GROUP rows expanded and merged;
+        status -1 where no GeneGroups is attached or a group id is out
+        of range (the numpy path raises)."""
+        if self._groups is None:
+            return DECODE_FALLBACK, None, None, 0
+        offsets, flat, n_gids = self._groups
+        packed = _u32(packed)
+        while True:
+            got = self._lib.shk_expand_groups(
+                packed.ctypes.data, self._grp.ctypes.data, int(self.info[2]),
+                offsets.ctypes.data, flat.ctypes.data, n_gids,
+                self._ri.ctypes.data, self._gi.ctypes.data, n1,
+                self._out_r.ctypes.data, self._out_g.ctypes.data,
+                self._out_r.size, self._info_p,
+            )
+            if got != -2:
+                break
+            need = 2 * int(self.info[0])
+            self._out_r = np.empty(need, np.int32)
+            self._out_g = np.empty(need, np.int32)
+        if got < 0:
+            return got, None, None, 0
+        return (got, self._out_r[:got], self._out_g[:got],
+                int(self.info[1]))
+
+
+def verdict_decoder(groups=None):
+    """A VerdictDecoder for a pass, or None without the engine."""
+    return VerdictDecoder(get_lib(), groups) if available() else None
 
 
 def scan_max_fused(fq1: str, fq2: str = "") -> int:

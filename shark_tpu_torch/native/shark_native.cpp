@@ -2067,3 +2067,149 @@ int64_t shk_pack_xl(const uint32_t* bf_words, uint64_t n_words,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The drain's verdict decode: one batch's packed verdicts (and, where its
+// reads tie, K4's pair stream) into the read-ascending (read, gene) arrays
+// shk_emit takes, genes ascending within a read. The same rows in the same
+// order as pipeline._winner_pairs_base and _expand_groups, which stay the
+// fallback for what only Python does. Free functions: ctypes.CDLL calls
+// them with the interpreter lock released.
+
+namespace {
+
+// the packed verdict's fields (shark_tpu_torch/classify/step.py PACK_*)
+constexpr int kPackNwShift = 16, kPackNwBits = 5, kPackEmitShift = 21,
+              kPackOvfShift = 22, kPackGrpShift = 23;
+constexpr uint32_t kNwSat = (1u << kPackNwBits) - 1;
+constexpr uint32_t kPairSentinel = 0xFFFFFFFFu;
+
+// Reads that occur two or more times in a read-ascending run.
+int64_t tied_reads(const int32_t* ri, int64_t n) {
+  int64_t tied = 0;
+  for (int64_t j = 1; j < n; j++)
+    if (ri[j] == ri[j - 1] && (j == 1 || ri[j - 1] != ri[j - 2])) tied++;
+  return tied;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode rows [0, n) of `packed`. Returns the pairs written to ri/gi (at
+// most cap), or
+//   -1: the numpy path must decode the batch: a row the device flagged as
+//       overflowed, a row with more winners than max_winners or a
+//       saturated count, or more pairs than cap;
+//   -2: the batch ties and `pairs` is absent or shorter than total + 2
+//       (total, its winner pairs, in info[3]): fetch a pair stream at
+//       least that long and call again;
+//   -3: pairs[total] is no sentinel, so the stream does not hold exactly
+//       the batch's pairs: the numpy path takes the winner matrix.
+// GROUP verdicts (not in -s mode) are not decoded: their rows go to
+// grp_rows (ascending, at most n) for shk_expand_groups. info (int64[5]):
+// pairs written, reads with two or more of them, GROUP rows, total winner
+// pairs of the other rows, and how the batch decoded: 0 no row to emit
+// (GROUP rows aside), 1 single winners only, 2 from the pair stream.
+int64_t shk_decode_verdicts(const uint32_t* packed, int n,
+                            const uint32_t* pairs, int64_t pairs_len,
+                            int max_winners, int single, int32_t* ri,
+                            int32_t* gi, int64_t cap, int32_t* grp_rows,
+                            int64_t* info) {
+  int64_t rows = 0, total = 0, n_grp = 0;
+  bool ties = false;
+  for (int i = 0; i < n; i++) {
+    uint32_t p = packed[i];
+    uint32_t nw = (p >> kPackNwShift) & kNwSat;
+    bool emit = (p >> kPackEmitShift) & 1;
+    if ((p >> kPackOvfShift) & 1) return -1;
+    if ((p >> kPackGrpShift) & 1) {
+      if (emit && !single) grp_rows[n_grp++] = i;
+      continue;
+    }
+    if (!emit || nw == 0 || (single && nw != 1)) continue;
+    if ((int)nw > max_winners || nw == kNwSat) return -1;
+    ties |= nw > 1;
+    if (!ties && rows < cap) {  // single winners so far: written as met
+      ri[rows] = i;
+      gi[rows] = (int32_t)(p & 0xFFFF);
+    }
+    rows++;
+    total += nw;
+  }
+  info[2] = n_grp;
+  info[3] = total;
+  if (!ties) {
+    if (rows > cap) return -1;
+    info[0] = rows;
+    info[1] = 0;
+    info[4] = rows ? 1 : 0;
+    return rows;
+  }
+  if (pairs == nullptr || pairs_len < total + 2) return -2;
+  if (pairs[total] != kPairSentinel) return -3;
+  if (total > cap) return -1;
+  // the stream is ascending (row << 16 | gene) keys; slice it by the
+  // known count, not by the sentinel's value: the pair (row 65535, gene
+  // 65535) encodes to the sentinel itself
+  int64_t m = 0;
+  for (int64_t j = 0; j < total; j++) {
+    uint32_t key = pairs[j];
+    int32_t row = (int32_t)(key >> 16);
+    if (row >= n) continue;  // a padding row (none expected)
+    ri[m] = row;
+    gi[m] = (int32_t)(key & 0xFFFF);
+    m++;
+  }
+  info[0] = m;
+  info[1] = tied_reads(ri, m);
+  info[4] = 2;
+  return m;
+}
+
+// GROUP verdicts (rows grp_rows of packed) expanded into their members
+// (the gene-group CSR: group g holds flat[offsets[g], offsets[g + 1]),
+// ascending) and merged read-ascending with the other rows' n1 pairs
+// (ri1, gi1). Each read's pairs come from one source. Returns the pairs
+// written to out_r/out_g, or -1 where a group id is out of range (the
+// numpy path raises), or -2 where they hold fewer than the pairs, whose
+// count goes to info[0]. info (int64[2]): pairs, reads with two or more.
+int64_t shk_expand_groups(const uint32_t* packed, const int32_t* grp_rows,
+                          int64_t n_grp, const int64_t* offsets,
+                          const uint16_t* flat, int64_t n_gids,
+                          const int32_t* ri1, const int32_t* gi1,
+                          int64_t n1, int32_t* out_r, int32_t* out_g,
+                          int64_t out_cap, int64_t* info) {
+  int64_t need = n1;
+  for (int64_t k = 0; k < n_grp; k++) {
+    int64_t gid = packed[grp_rows[k]] & 0xFFFF;
+    if (gid >= n_gids) return -1;
+    need += offsets[gid + 1] - offsets[gid];
+  }
+  info[0] = need;
+  if (need > out_cap) return -2;
+  int64_t m = 0, j = 0, tied = 0;
+  for (int64_t k = 0; k < n_grp; k++) {
+    int32_t row = grp_rows[k];
+    for (; j < n1 && ri1[j] < row; j++, m++) {
+      out_r[m] = ri1[j];
+      out_g[m] = gi1[j];
+    }
+    int64_t gid = packed[row] & 0xFFFF;
+    int64_t a = offsets[gid], b = offsets[gid + 1];
+    tied += b - a >= 2;
+    for (int64_t t = a; t < b; t++, m++) {
+      out_r[m] = row;
+      out_g[m] = flat[t];
+    }
+  }
+  for (; j < n1; j++, m++) {
+    out_r[m] = ri1[j];
+    out_g[m] = gi1[j];
+  }
+  info[0] = m;
+  info[1] = tied + tied_reads(ri1, n1);
+  return m;
+}
+
+}  // extern "C"

@@ -34,6 +34,7 @@ from shark_tpu_torch.classify.step import (
 from shark_tpu_torch.config import SharkConfig
 from shark_tpu_torch.index.build import build_index
 from shark_tpu_torch.index.structure import SharkIndex
+from shark_tpu_torch.io import native as native_mod
 from shark_tpu_torch.io.encode import ReadBatch, encode_batch, fused_length
 from shark_tpu_torch.io.fastx import read_fasta, read_fastq_pairs
 from shark_tpu_torch.io.pystream import PyStream
@@ -55,8 +56,10 @@ HOST_ROWS = kernels.LaunchCounter(("oracle",))
 
 # The drain's counts of a pass (_winner_pairs), in Spans.counts and the
 # pass's stats: GROUP verdicts and the batches that held any, (read, gene)
-# pairs and the reads with several.
-DRAIN_COUNTS = ("group_rows", "group_batches", "assoc", "tied_reads")
+# pairs and the reads with several, and the batches the engine decoded
+# without the numpy path.
+DRAIN_COUNTS = ("group_rows", "group_batches", "assoc", "tied_reads",
+                "native_decode_batches")
 
 
 def _round_len(n: int, k: int) -> int:
@@ -165,6 +168,7 @@ def _winner_pairs(
     spec_state: Optional[dict] = None,
     groups=None,
     counters: Optional[dict] = None,
+    decoder=None,
 ):
     """Device result -> (read_idx, gene_idx) association arrays, read-ascending,
     genes ascending within a read (the reference's emission order,
@@ -184,26 +188,120 @@ def _winner_pairs(
     function tells the main loop that the workload is tie-heavy and which
     capacity to speculate with (0 = don't).
 
-    `counters` (the pass's Spans.counts) gains the batch's DRAIN_COUNTS."""
-    ri1, gi1, grp_rows, packed = _winner_pairs_base(
-        cfg, index, result, n, codes, max_winners,
-        packed_np=packed_np, reprobe=reprobe, spec=spec,
-        spec_state=spec_state,
+    `counters` (the pass's Spans.counts) gains the batch's DRAIN_COUNTS.
+
+    `decoder` (io/native.py VerdictDecoder) decodes the batch in the
+    engine where it can (_decode_native); the arrays returned are then
+    its buffers, valid until its next call."""
+    got = (
+        _decode_native(cfg, result, n, max_winners, packed_np, spec,
+                       spec_state, decoder)
+        if decoder is not None
+        else None
     )
-    if grp_rows.size == 0:
-        ri, gi = ri1, gi1
+    if got is not None:
+        ri, gi, n_grp, tied = got
     else:
-        with span("group_expand"):
-            ri, gi = _expand_groups(groups, packed, grp_rows, ri1, gi1, n)
+        ri1, gi1, grp_rows, packed = _winner_pairs_base(
+            cfg, index, result, n, codes, max_winners,
+            packed_np=packed_np, reprobe=reprobe, spec=spec,
+            spec_state=spec_state,
+        )
+        if grp_rows.size == 0:
+            ri, gi = ri1, gi1
+        else:
+            with span("group_expand"):
+                ri, gi = _expand_groups(groups, packed, grp_rows, ri1, gi1,
+                                        n)
+        n_grp, tied = grp_rows.size, None
     if counters is not None:
         for name, v in (
-            ("group_rows", grp_rows.size),
-            ("group_batches", grp_rows.size > 0),
+            ("group_rows", n_grp),
+            ("group_batches", n_grp > 0),
             ("assoc", ri.size),
-            ("tied_reads", _tied_reads(ri)),
+            ("tied_reads", _tied_reads(ri) if tied is None else tied),
+            ("native_decode_batches", got is not None),
         ):
             counters[name] = counters.get(name, 0) + int(v)
     return ri, gi
+
+
+def _decode_native(cfg, result, n, max_winners, packed_np, spec,
+                   spec_state, decoder):
+    """_winner_pairs_base and _expand_groups in the engine, with the
+    interpreter lock released: (ri, gi, GROUP rows, reads with several),
+    or None where the batch needs the numpy path, which is chosen from
+    the batch itself: a sharded-BF result (its overflow counter and
+    reprobe), a row the device flagged as overflowed or tied past
+    max_winners, a tie batch whose pair stream cannot be had (-s, B past
+    65536, or past B * max_winners pairs) or is not exact, a GROUP
+    verdict without GeneGroups. A tie batch with no speculated stream, or
+    one too short, fetches its own (extract_pairs) as the numpy path
+    does, and decodes again. spec_state learns what it learns there."""
+    if len(result) > 4:
+        return None
+    packed_dev = result[0]
+    packed = packed_np if packed_np is not None else _np(packed_dev)
+    B = int(packed_dev.shape[0])
+    streams = not cfg.single and B <= 65536
+    pairs = _np(spec[0]) if spec is not None and streams else None
+    got, ri, gi = decoder.decode(packed, n, pairs, max_winners, cfg.single)
+    if got == native_mod.DECODE_NEED_PAIRS and streams:
+        total = int(decoder.info[3])
+        BW = B * max_winners
+        if total + 2 > BW:
+            return None
+        pairs = _np(extract_pairs(packed_dev, result[1], _pair_cap(total, BW)))
+        got, ri, gi = decoder.decode(packed, n, pairs, max_winners,
+                                     cfg.single)
+    if got < 0:
+        return None
+    kind = int(decoder.info[4])
+    if kind == 2:
+        _spec_hit(spec_state, _pair_cap(int(decoder.info[3]),
+                                        B * max_winners))
+    elif kind == 1 and spec is not None:
+        _spec_idle(spec_state)
+    n_grp = int(decoder.info[2])
+    if not n_grp:
+        return ri, gi, 0, int(decoder.info[1])
+    with span("group_expand"):
+        got, ri, gi, tied = decoder.expand(packed, got)
+    return None if got < 0 else (ri, gi, n_grp, tied)
+
+
+def _pair_cap(total: int, BW: int) -> int:
+    """The pair stream's length for `total` pairs: shark_tpu's levels
+    {2^14, 2^17, 2^19, B*W} (the stream's length is part of what both
+    packages compare), the least that holds total + 2."""
+    return next(
+        (
+            min(lv, BW)
+            for lv in ((1 << 14), (1 << 17), (1 << 19))
+            if min(lv, BW) >= total + 2
+        ),
+        BW,
+    )
+
+
+def _spec_hit(spec_state: Optional[dict], cap: int) -> None:
+    """A batch took the pair stream: the main loop speculates with at
+    least `cap` from now on."""
+    if spec_state is not None:
+        spec_state["cap"] = max(spec_state.get("cap", 0), cap)
+        spec_state["idle"] = 0
+
+
+def _spec_idle(spec_state: Optional[dict]) -> None:
+    """A speculated stream went unused; after four in a row (a tie-heavy
+    region followed by a tie-free one, or a workload whose streams never
+    fit) the main loop stops paying the dispatch + d2h copy — the next
+    tie batch re-engages it."""
+    if spec_state is not None:
+        spec_state["idle"] = spec_state.get("idle", 0) + 1
+        if spec_state["idle"] >= 4:
+            spec_state["cap"] = 0
+            spec_state["idle"] = 0
 
 
 def _tied_reads(ri: np.ndarray) -> int:
@@ -312,15 +410,8 @@ def _winner_pairs_base(
     sat = (1 << PACK_NW_BITS) - 1
     overflow = (nw > max_winners) | (nw == sat) | dev_ovf[rows]
     if not np.any(overflow) and not np.any(nw > 1):
-        if spec_state is not None and spec is not None:
-            # the speculated stream went unused; after a few consecutive
-            # wasted ones (a tie-heavy region followed by a tie-free one)
-            # tell the main loop to stop paying the dispatch + d2h copy —
-            # the next tie batch re-engages it via the exact path
-            spec_state["idle"] = spec_state.get("idle", 0) + 1
-            if spec_state["idle"] >= 4:
-                spec_state["cap"] = 0
-                spec_state["idle"] = 0
+        if spec is not None:
+            _spec_idle(spec_state)  # the speculated stream went unused
         return (
             rows.astype(np.int32),
             winner0[rows].astype(np.int32),
@@ -339,18 +430,9 @@ def _winner_pairs_base(
             # sentinel check below still guards against truncation.
             total = int(np.minimum(nw, max_winners).sum())
             BW = B * max_winners
-            cap = next(
-                (
-                    min(lv, BW)
-                    for lv in ((1 << 14), (1 << 17), (1 << 19))
-                    if min(lv, BW) >= total + 2
-                ),
-                BW,
-            )
+            cap = _pair_cap(total, BW)
             if total + 2 <= BW:
-                if spec_state is not None:
-                    spec_state["cap"] = max(spec_state.get("cap", 0), cap)
-                    spec_state["idle"] = 0
+                _spec_hit(spec_state, cap)
                 if spec is not None and spec[1] >= total + 2:
                     pairs = _np(spec[0])
                 else:
@@ -375,15 +457,10 @@ def _winner_pairs_base(
                         grp_rows,
                         packed,
                     )
-        if spec_state is not None and spec is not None:
+        if spec is not None:
             # speculation unusable for this batch shape (stream over
-            # capacity, or the sentinel check fell through): same decay
-            # as the tie-free case so a permanently-unusable workload
-            # stops paying the discarded dispatch + d2h
-            spec_state["idle"] = spec_state.get("idle", 0) + 1
-            if spec_state["idle"] >= 4:
-                spec_state["cap"] = 0
-                spec_state["idle"] = 0
+            # capacity, or the sentinel check fell through)
+            _spec_idle(spec_state)
         winners = _np(winners_dev)
         W = winners.shape[1]
         counts = np.minimum(nw, W)
@@ -669,6 +746,9 @@ def _run_native(
         else 0
     )
     spec_state = {"cap": pre_cap}
+    # the drain's decode in the engine; its buffers, made on the drain
+    # thread's first batch, serve the pass
+    decoder = native_mod.verdict_decoder(classifier.groups)
     for name in DRAIN_COUNTS:
         spans.counts[name] = 0
 
@@ -701,6 +781,7 @@ def _run_native(
                         spec_state=spec_state,
                         groups=classifier.groups,
                         counters=spans.counts,
+                        decoder=decoder,
                     )
                 with span("emit"):
                     stream.emit(slot, ri, gi)
@@ -954,8 +1035,6 @@ def _start_len_scan(cfg: SharkConfig, ssv_stream):
         and not cfg.resume
     ):
         return None
-    from shark_tpu_torch.io import native as native_mod
-
     if not native_mod.available() or not _regular_files(
         cfg.sample1_path, cfg.sample2_path
     ):
@@ -1142,8 +1221,6 @@ def _run_pipeline_inner(
     if cfg.backend == "native":
         # pure-CPU serving path: classification in the native engine, no
         # device anywhere (_run_native_host)
-        from shark_tpu_torch.io import native as native_mod
-
         if not native_mod.available():
             raise RuntimeError(
                 "--backend native requires the native engine (g++ on PATH)"
@@ -1211,8 +1288,6 @@ def _run_device(
     layout) and the stream _run_native serves it from. The stream is the
     native engine's where cfg.use_native, no ssv_stream and a built engine
     all hold, else the Python I/O path's."""
-    from shark_tpu_torch.io import native as native_mod
-
     probe = None if cfg.probe == "auto" else cfg.probe
     if classifier is not None:
         pass

@@ -214,8 +214,9 @@ def test_bench_gpu_run_loads_no_jax_shark_tpu_or_bench(tmp_path):
 
 
 def test_native_engine_source_is_shark_tpu_s():
-    """The port's C++ engine is shark_tpu's with its counters (shk_stats)
-    and the auto geometry (shk_open_auto) put in: every line of
+    """The port's C++ engine is shark_tpu's with its counters (shk_stats),
+    the auto geometry (shk_open_auto) and the drain's verdict decode
+    (shk_decode_verdicts, shk_expand_groups) put in: every line of
     shark_tpu's is there, in order and unchanged, and only lines were
     added."""
     import difflib
@@ -230,7 +231,8 @@ def test_native_engine_source_is_shark_tpu_s():
     added = b"\n".join(b"\n".join(ours[j1:j2])
                        for op, _, _, j1, j2 in ops if op == "insert")
     for word in (b"now_ns", b"count(", b"shk_stats", b"kStats",
-                 b"fastq_size", b"shk_open_auto", b"shk_copy_batch"):
+                 b"fastq_size", b"shk_open_auto", b"shk_copy_batch",
+                 b"shk_decode_verdicts", b"shk_expand_groups"):
         assert word in added
 
 
